@@ -1,0 +1,43 @@
+"""Logistic GPU power model (paper Eq. 1, Appendix A Table 7).
+
+P(b) = P_range / (1 + exp(-k (log2(b) - x0))) + P_idle
+
+with b the number of concurrently in-flight sequences (vLLM max_num_seqs).
+Works with python floats and numpy arrays.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import numpy as np
+
+ArrayLike = Union[float, int, np.ndarray]
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerModel:
+    """Eq. 1 logistic power curve for one accelerator."""
+
+    name: str
+    p_idle_w: float
+    p_nom_w: float
+    k: float = 1.0
+    x0: float = 4.2
+    quality: str = "FAIR"
+
+    @property
+    def p_range_w(self) -> float:
+        return self.p_nom_w - self.p_idle_w
+
+    def power_w(self, b: ArrayLike) -> ArrayLike:
+        """Power draw at b in-flight sequences. b <= 0 -> idle power."""
+        b = np.asarray(b, dtype=np.float64)
+        safe_b = np.maximum(b, 1e-9)
+        logistic = self.p_range_w / (1.0 + np.exp(-self.k * (np.log2(safe_b) - self.x0)))
+        return np.where(b <= 0, self.p_idle_w, self.p_idle_w + logistic)
+
+
+# H100: fitted to ML.ENERGY v3.0 / G2G Fig. 2 (HIGH).
+H100_POWER = PowerModel("H100-SXM5", p_idle_w=300.0, p_nom_w=600.0, k=1.0,
+                        x0=4.2, quality="HIGH")
