@@ -3,6 +3,9 @@
 flash_decode — blocked GQA decode attention (the H(L)*n KV-scan term of
                the paper's decode roofline, §2.2), CUDA C++ in
                csrc/flash_decode.cu;
+mamba_scan   — the Mamba2 chunked SSD scan of a prefill, csrc/mamba_scan.cu;
+wkv6         — the RWKV6 chunked recurrence of a prefill, csrc/wkv6.cu;
+build        — nvcc build and ctypes loading of the csrc/ sources;
 ref          — the plain versions the kernels are held against;
 ops          — the dispatch the model calls.
 """

@@ -1,10 +1,8 @@
 """Wrapper of the CUDA flash-decode kernel (csrc/flash_decode.cu).
 
 Replaces the Pallas TPU kernel `repro.kernels.flash_decode.flash_decode`.
-The kernel is compiled on first use with nvcc for sm_90a into a shared
-library with a plain C interface under `build/repro_torch/` at the
-repository root, and loaded with ctypes.  The library's file name carries a
-hash of the source, so an edited source is rebuilt.
+The kernel is built on first use by `kernels.build` (nvcc for sm_90a, a
+plain C interface loaded with ctypes).
 
 The wrapper only checks and launches: on a CUDA tensor it launches the
 kernel or raises, and it raises on any other device.  Which version runs
@@ -15,70 +13,30 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import build as _build
+
+SOURCE = "flash_decode.cu"
 MAX_G = 16        # query heads per kv head (csrc MAX_G)
 MAX_D = 256       # head_dim (csrc MAX_D)
 CHUNK = 256       # KV rows per block; T is split into ceil(T / CHUNK) pieces
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the flash_decode kernel needs the"
-                           " CUDA toolkit to build")
-    return nvcc
-
 
 def build() -> tuple[Path, str]:
-    """Compile the kernel library if this source has not been built yet.
-
-    Returns the library's path and the compiler's output (`-Xptxas -v`
-    register and shared-memory report; empty when the build was reused).
-    """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_decode_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stdout}"
-                           f"{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+    """Compile the kernel library (see `kernels.build.build`)."""
+    return _build.build(SOURCE)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.flash_decode_launch
-        # pointers and the stream as c_void_p: ctypes would otherwise pass
-        # them as 32-bit ints and cut them
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 6 + [ctypes.c_int64] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _configure(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_decode_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 6 + [ctypes.c_int64] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def check_inputs(q, k, v, lengths) -> None:
@@ -124,7 +82,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode launches a CUDA kernel; got tensors"
                          f" on {q.device}")
-    lib = _load()
+    lib = _build.load(SOURCE, _configure)
     B, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     n_split = -(-T // CHUNK)

@@ -12,8 +12,17 @@ from typing import Optional
 
 import torch
 
-from .flash_decode import check_inputs, flash_decode
-from .ref import flash_decode_ref
+from . import flash_decode as _fd
+from . import mamba_scan as _ms
+from . import wkv6 as _wk
+from .ref import flash_decode_ref, mamba_scan_ref, wkv6_ref
+
+
+def _plain(impl: Optional[str], x: torch.Tensor, name: str) -> bool:
+    """True where the plain version runs (see the module docstring)."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"unknown {name} impl {impl!r}")
+    return impl == "plain" or x.device.type == "cpu"
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,9 +30,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      impl: Optional[str] = None) -> torch.Tensor:
     """(B,H,D) x (B,T,K,D) -> (B,H,D) in q.dtype; the tau = W + H(L)n
     KV-scan."""
-    if impl not in (None, "plain"):
-        raise ValueError(f"unknown decode_attention impl {impl!r}")
-    if impl == "plain" or q.device.type == "cpu":
-        check_inputs(q, k, v, lengths)
+    if _plain(impl, q, "decode_attention"):
+        _fd.check_inputs(q, k, v, lengths)
         return flash_decode_ref(q, k, v, lengths).to(q.dtype)
-    return flash_decode(q, k, v, lengths)
+    return _fd.flash_decode(q, k, v, lengths)
+
+
+def ssd_scan(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             lA: torch.Tensor, *, impl: Optional[str] = None):
+    """Mamba2 SSD scan from a zero state: (y (B,S,nh,hd), final state
+    (B,nh,hd,ds)), float32."""
+    if _plain(impl, xt, "ssd_scan"):
+        _ms.check_inputs(xt, Bm, Cm, lA)
+        return mamba_scan_ref(xt, Bm, Cm, lA)
+    return _ms.mamba_scan(xt, Bm, Cm, lA)
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, *,
+             impl: Optional[str] = None):
+    """RWKV6 recurrence from a zero state: (out (B,S,H,hd), final state
+    (B,H,hd,hd)), float32."""
+    if _plain(impl, r, "wkv_scan"):
+        _wk.check_inputs(r, k, v, w, u)
+        return wkv6_ref(r, k, v, w, u)
+    return _wk.wkv6(r, k, v, w, u)

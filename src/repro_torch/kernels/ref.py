@@ -6,6 +6,7 @@ kernel against on the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -32,3 +33,52 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p * valid.any(-1)[:, None, None, None]
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return out.reshape(B, H, D)
+
+
+def mamba_scan_ref(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   lA: torch.Tensor,
+                   init_state: Optional[torch.Tensor] = None):
+    """Sequential SSD scan, one step per token, in f32.
+
+    xt: (B,S,nh,hd) dt-scaled inputs; Bm/Cm: (B,S,ds); lA: (B,S,nh)
+    log-decay.  state_t = exp(lA_t) state_{t-1} + xt_t (x) B_t and
+    y_t = state_t . C_t, from `init_state` (B,nh,hd,ds) or zero.
+    Returns (y (B,S,nh,hd), final_state (B,nh,hd,ds)), both float32.
+    """
+    B, S, nh, hd = xt.shape
+    ds = Bm.shape[-1]
+    state = (init_state.float().clone() if init_state is not None else
+             torch.zeros(B, nh, hd, ds, dtype=torch.float32,
+                         device=xt.device))
+    xt, Bm, Cm, lA = xt.float(), Bm.float(), Cm.float(), lA.float()
+    ys = []
+    for t in range(S):
+        state = state * torch.exp(lA[:, t])[:, :, None, None] \
+            + torch.einsum("bnp,bs->bnps", xt[:, t], Bm[:, t])
+        ys.append(torch.einsum("bnps,bs->bnp", state, Cm[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             init_state: Optional[torch.Tensor] = None):
+    """Sequential RWKV6 recurrence, one step per token, in f32.
+
+    r,k,v,w: (B,S,H,hd); u: (H,hd).  out_t = r_t (state_{t-1} +
+    diag(u) k_t^T v_t), state_t = diag(w_t) state_{t-1} + k_t^T v_t, from
+    `init_state` (B,H,hd,hd) [k-dim, v-dim] or zero.  Returns
+    (out (B,S,H,hd), final_state (B,H,hd,hd)), both float32.
+    """
+    B, S, H, hd = r.shape
+    state = (init_state.float().clone() if init_state is not None else
+             torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device))
+    r, k, v, w, u = r.float(), k.float(), v.float(), w.float(), u.float()
+    outs = []
+    for t in range(S):
+        r_t, k_t, v_t = r[:, t], k[:, t], v[:, t]
+        bonus = torch.einsum("bhd,bhd->bh", r_t, u[None] * k_t)
+        outs.append(torch.einsum("bhd,bhde->bhe", r_t, state)
+                    + bonus[..., None] * v_t)
+        state = state * w[:, t, :, :, None] \
+            + torch.einsum("bhd,bhe->bhde", k_t, v_t)
+    return torch.stack(outs, dim=1), state

@@ -6,6 +6,8 @@ returns the port's parameter dict on `device`:
 
   * the stacked `params["unit"][name][leaf]` (n_repeat leading axis) is
     unstacked into the list `params["layers"]`;
+  * `params["shared"][name][leaf]`, the blocks used at every repeat, is
+    carried across as it is;
   * weights keep their (in, out) layout: the port also computes `x @ W`;
   * bfloat16 leaves (numpy has no bfloat16 of its own; the reference hands
     out `ml_dtypes` arrays, which `torch.from_numpy` refuses) go through
@@ -32,10 +34,9 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def convert_params(ref_params: Dict[str, Any], device="cuda"
                    ) -> Dict[str, Any]:
     device = resolve_device(device)
-    for part in ("shared", "encoder"):
-        if part in ref_params:
-            raise NotImplementedError(f"reference params with {part!r} are"
-                                      " not ported yet")
+    if "encoder" in ref_params:
+        raise NotImplementedError("reference params with an encoder are not"
+                                  " ported yet")
     out = {key: _tensor(ref_params[key], device)
            for key in ("embed", "final_norm", "lm_head") if key in ref_params}
     unit = ref_params["unit"]
@@ -48,4 +49,8 @@ def convert_params(ref_params: Dict[str, Any], device="cuda"
                 for leaf, a in blk.items()}
          for name, blk in unit.items()}
         for r in range(n_repeat.pop())]
+    if "shared" in ref_params:
+        out["shared"] = {name: {leaf: _tensor(a, device)
+                                for leaf, a in blk.items()}
+                         for name, blk in ref_params["shared"].items()}
     return out

@@ -1,13 +1,14 @@
 """Decoder-stack model: init / forward / prefill / decode_step.
 
 Parameters are a plain dict: `embed`, `final_norm`, `lm_head` (unless the
-embeddings are tied) and `layers`, a list of `n_repeat` unit dicts keyed
-`b{i}_{kind}` as in the reference.  Weights are stored (in, out) and used
-as `x @ W`, the reference's layout, so `convert.py` copies them as they are.
+embeddings are tied), `layers`, a list of `n_repeat` unit dicts keyed
+`b{i}_{kind}` as in the reference, and `shared`, one dict of the blocks
+marked `shared` (Zamba2's attention + MLP pair), used at every repeat.
+Weights are stored (in, out) and used as `x @ W`, the reference's layout,
+so `convert.py` copies them as they are.
 
-This slice ports the dense attention + MLP unit.  Mixture-of-experts,
-Mamba2, RWKV6, cross-attention, shared blocks, the encoder and patch
-prefixes raise NotImplementedError.
+Ported block kinds: attention, MLP, Mamba2 and RWKV6.  Mixture-of-experts,
+cross-attention, the encoder and patch prefixes raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,23 +22,25 @@ from .attention import (attention_decode, attention_full, decode_index,
 from .common import dense_init, dtype_of, rms_norm
 from .mlp import apply_mlp, init_mlp
 from .spec import ArchConfig
+from .ssm import (init_mamba2, init_rwkv6, mamba2_decode, mamba2_full,
+                  rwkv6_decode, rwkv6_full)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
-_INIT = {"attn": init_attention, "mlp": init_mlp}
+_INIT = {"attn": init_attention, "mlp": init_mlp, "mamba2": init_mamba2,
+         "rwkv6": init_rwkv6}
+_FULL = {"mamba2": mamba2_full, "rwkv6": rwkv6_full}
+_DECODE = {"mamba2": mamba2_decode, "rwkv6": rwkv6_decode}
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what this slice has not ported."""
+    """Raise NotImplementedError for what the port has not ported yet."""
     for b in cfg.unit:
         if b.kind not in _INIT:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {b.kind!r} is not ported yet"
                 f" (ported: {sorted(_INIT)})")
-        if b.shared:
-            raise NotImplementedError(
-                f"{cfg.name}: shared blocks are not ported yet")
     if cfg.encoder is not None:
         raise NotImplementedError(f"{cfg.name}: the encoder is not ported"
                                   " yet")
@@ -63,8 +66,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                                        dtype=dt, device=device)
     params["layers"] = [
         {f"b{i}_{b.kind}": _INIT[b.kind](generator, cfg, device)
-         for i, b in enumerate(cfg.unit)}
+         for i, b in enumerate(cfg.unit) if not b.shared}
         for _ in range(cfg.n_repeat)]
+    shared = {f"b{i}_{b.kind}": _INIT[b.kind](generator, cfg, device)
+              for i, b in enumerate(cfg.unit) if b.shared}
+    if shared:
+        params["shared"] = shared
     return params
 
 
@@ -72,33 +79,48 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _blocks(params: Params, cfg: ArchConfig, r: int):
+    """(name, spec, parameters) of repeat r's blocks, in unit order; a
+    shared block gets the one parameter set of `params["shared"]`."""
+    for i, b in enumerate(cfg.unit):
+        name = f"b{i}_{b.kind}"
+        p = params["shared"][name] if b.shared else params["layers"][r][name]
+        yield name, b, p
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            mode: str = "train"):
+            mode: str = "train", impl: Optional[str] = None):
     """Full-sequence pass over tokens (B, S).
 
     mode="train":   returns logits (B, S, V)
     mode="prefill": returns (last_logits (B, 1, V), cache), the cache keyed
-                    like `init_cache` with (n_repeat, B, S', K, hd) K/V,
-                    S' = S or, under SWA, the ring-aligned last window.
+                    like `init_cache`, each leaf stacked over n_repeat:
+                    attention K/V (n_repeat, B, S', K, hd) with S' = S or,
+                    under SWA, the ring-aligned last window; the recurrent
+                    blocks' O(1) state in `init_cache`'s shapes.
+    `impl` is passed to the scans of `kernels.ops` ("plain" runs their
+    plain versions).
     """
     check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown forward mode {mode!r}")
     x = params["embed"][tokens]
     per_block: Dict[str, list] = {}
-    for layer in params["layers"]:
-        for i, b in enumerate(cfg.unit):
-            name = f"b{i}_{b.kind}"
+    for r in range(cfg.n_repeat):
+        for name, b, p in _blocks(params, cfg, r):
+            c = None
             if b.kind == "attn":
-                x, c = attention_full(layer[name], cfg, x, mode=mode)
-                if c is not None:
-                    per_block.setdefault(name, []).append(c)
+                x, c = attention_full(p, cfg, x, mode=mode)
+            elif b.kind == "mlp":
+                x = apply_mlp(p, cfg, x)
             else:
-                x = apply_mlp(layer[name], cfg, x)
+                x, c = _FULL[b.kind](p, cfg, x, mode=mode, impl=impl)
+            if c is not None:
+                per_block.setdefault(name, []).append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         cache = {name: {key: torch.stack([c[key] for c in cs])
-                        for key in ("k", "v")}
+                        for key in cs[0]}
                  for name, cs in per_block.items()}
         return x[:, -1:] @ _head(params, cfg), cache
     return x @ _head(params, cfg)
@@ -111,38 +133,69 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
     `pos` (host int or (B,) numpy array) is the absolute position of each
     new token.  The cache is updated in place and returned.  `impl` is
-    passed to `ops.decode_attention` ("plain" runs the plain attention).
+    passed to `ops.decode_attention` ("plain" runs the plain attention);
+    the recurrent blocks take one plain step, as in the reference.
     This is the paper's tau(n, L) iteration: weight streaming + the KV scan
-    over `pos` cached tokens.
+    over `pos` cached tokens (+ the O(1) state of recurrent blocks).
     """
     check_supported(cfg)
     x = params["embed"][tokens]
-    cache_len = next(iter(cache.values()))["k"].shape[2]
-    idx = decode_index(cfg, pos, tokens.shape[0], cache_len, x.device)
-    for r, layer in enumerate(params["layers"]):
-        for i, b in enumerate(cfg.unit):
-            name = f"b{i}_{b.kind}"
+    idx = None
+    attn = [f"b{i}_{b.kind}" for i, b in enumerate(cfg.unit)
+            if b.kind == "attn"]
+    if attn:
+        idx = decode_index(cfg, pos, tokens.shape[0],
+                           cache[attn[0]]["k"].shape[2], x.device)
+    for r in range(cfg.n_repeat):
+        for name, b, p in _blocks(params, cfg, r):
+            c = cache.get(name)
             if b.kind == "attn":
-                x = attention_decode(
-                    layer[name], cfg, x,
-                    {"k": cache[name]["k"][r], "v": cache[name]["v"][r]},
-                    idx, impl=impl)
+                x = attention_decode(p, cfg, x, {"k": c["k"][r],
+                                                 "v": c["v"][r]},
+                                     idx, impl=impl)
+            elif b.kind == "mlp":
+                x = apply_mlp(p, cfg, x)
             else:
-                x = apply_mlp(layer[name], cfg, x)
+                x, new = _DECODE[b.kind](p, cfg, x,
+                                         {key: t[r] for key, t in c.items()})
+                for key, t in new.items():
+                    c[key][r] = t
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), cache
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device="cuda", dtype: Optional[torch.dtype] = None) -> Cache:
-    """Zero decode cache: one (n_repeat, batch, slots, K, hd) K and V slab
-    per attention block, slots = max_seq (or the SWA window if smaller)."""
+    """Zero decode cache keyed by block name, in the reference's shapes
+    and dtypes, one entry per repeat (of a shared block too): attention
+    K/V hold `max_seq` slots (or the SWA window if smaller); Mamba2 and
+    RWKV6 blocks hold O(1) state."""
     device = resolve_device(device)
     check_supported(cfg)
     dt = dtype or dtype_of(cfg)
-    R, K, hd = cfg.n_repeat, cfg.n_kv_heads, cfg.hd
-    slots = min(cfg.swa_window, max_seq) if cfg.swa_window else max_seq
-    return {f"b{i}_attn": {key: torch.zeros((R, batch, slots, K, hd),
-                                            dtype=dt, device=device)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros((cfg.n_repeat, batch) + shape, dtype=dtype,
+                           device=device)
+
+    f32 = torch.float32
+    cache: Cache = {}
+    for i, b in enumerate(cfg.unit):
+        name = f"b{i}_{b.kind}"
+        if b.kind == "attn":
+            slots = min(cfg.swa_window, max_seq) if cfg.swa_window \
+                else max_seq
+            cache[name] = {key: zeros(slots, cfg.n_kv_heads, cfg.hd)
                            for key in ("k", "v")}
-            for i, b in enumerate(cfg.unit) if b.kind == "attn"}
+        elif b.kind == "mamba2":
+            cache[name] = {
+                "conv": zeros(cfg.d_conv - 1,
+                              cfg.d_inner + 2 * cfg.ssm_state, dtype=f32),
+                "ssm": zeros(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                             dtype=f32)}
+        elif b.kind == "rwkv6":
+            hd = cfg.rwkv_head_dim
+            cache[name] = {"wkv": zeros(cfg.rwkv_heads, hd, hd, dtype=f32),
+                           "shift_tm": zeros(cfg.d_model),
+                           "shift_cm": zeros(cfg.d_model)}
+    return cache

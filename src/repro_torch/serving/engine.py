@@ -3,11 +3,11 @@
 One `PoolEngine` is one "instance" in the paper's terms: a model replica
 serving one context window.  It owns:
 
-  * a slotted KV cache slab of exactly `n_slots` sequences — Eq. 3's
+  * a slotted KV/state cache slab of exactly `n_slots` sequences — Eq. 3's
     concurrency ceiling enforced as the scheduler's admission limit; one
-    (n_repeat, n_slots, T, K, hd) K and V tensor per attention block on the
-    card, updated in place (the reference returns new JAX arrays from every
-    step instead);
+    (n_repeat, n_slots, T, K, hd) K and V tensor per attention block and
+    the O(1) state of each recurrent block on the card, updated in place
+    (the reference returns new JAX arrays from every step instead);
   * a decode step over all slots (inactive slots compute masked garbage, as
     real continuous-batching engines do);
   * an EnergyMeter charging every iteration P(b) * tau.
@@ -17,7 +17,9 @@ admission and its K/V is spliced into the slab.  Energy/time accounting
 supports two policies: immediate (the whole prompt charged at admission)
 and chunked interleave (`prefill_chunk` tokens ride along each decode
 iteration, the Sarathi-style schedule; the request holds its slot but emits
-no tokens until its prefill budget drains).
+no tokens until its prefill budget drains).  Chunked interleave is refused
+for models with recurrent blocks: the decode pass would step the O(1)
+state of slots still waiting on their prefill (ROADMAP C8).
 
 All post-decode bookkeeping is slot-batched over numpy arrays; Python
 loops only touch the slots that complete on a given iteration.
@@ -37,6 +39,7 @@ from .energy import EnergyMeter
 from .request import Request, latency_percentiles
 
 PREFILL_MFU = 0.8     # MFU every prefill charge is drawn at
+RECURRENT = ("mamba2", "rwkv6")     # blocks that carry O(1) state
 
 
 class DrainTruncatedError(RuntimeError):
@@ -61,6 +64,11 @@ class PoolEngine:
     def __init__(self, cfg, params, *, window: int, profile: BaseProfile,
                  n_slots: Optional[int] = None, name: str = "pool",
                  prefill_chunk: Optional[int] = None):
+        if prefill_chunk and any(b.kind in RECURRENT for b in cfg.unit):
+            raise NotImplementedError(
+                f"prefill_chunk with {cfg.name}'s recurrent blocks: the"
+                " decode pass would advance the state of slots still"
+                " waiting on their prefill (ROADMAP C8)")
         self.cfg, self.params = cfg, params
         self.window = window
         self.name = name
@@ -140,14 +148,23 @@ class PoolEngine:
                 req.first_token_time = self.meter.sim_time_s
 
     def _splice(self, prefill_cache, slot: int) -> None:
-        """Write a single-sequence prefill cache into slab slot `slot`: the
-        first t = min(S', T) positions get the prompt's last t entries (SWA
-        caches arrive already ring-aligned from attention_full)."""
+        """Write a single-sequence prefill cache into slab slot `slot`.
+
+        Attention K/V: the first t = min(S', T) positions get the prompt's
+        last t entries (SWA caches arrive already ring-aligned from
+        attention_full).  O(1) state (Mamba2 conv/ssm, RWKV6 wkv/shifts)
+        is written whole, as the reference's `put` does; the Mamba2 conv
+        state of a prompt shorter than d_conv - 1 arrives right-aligned
+        behind zeros from the prefill (the reference writes its rows at
+        the start of the slot instead: ROADMAP C7)."""
         for name, slab in self.cache.items():
-            for key in ("k", "v"):
-                piece = prefill_cache[name][key][:, 0]   # (R, S', K, hd)
-                t = min(piece.shape[1], slab[key].shape[2])
-                slab[key][:, slot, :t] = piece[:, -t:]
+            for key, dst in slab.items():
+                piece = prefill_cache[name][key][:, 0]
+                if key in ("k", "v"):                   # (R, S', K, hd)
+                    t = min(piece.shape[1], dst.shape[2])
+                    dst[:, slot, :t] = piece[:, -t:]
+                else:
+                    dst[:, slot] = piece
 
     def _clear_slot(self, slot: int) -> None:
         self.slots[slot] = None

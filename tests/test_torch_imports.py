@@ -62,8 +62,11 @@ def test_entry_points_refuse_missing_cuda():
 
 
 def test_kernel_module_imports_without_nvcc():
-    code = ("import repro_torch.kernels.flash_decode as fd; "
-            "print(fd.flash_decode.launches)")
+    code = ("import repro_torch.kernels.flash_decode as fd, "
+            "repro_torch.kernels.mamba_scan as ms, "
+            "repro_torch.kernels.wkv6 as wk; "
+            "print(fd.flash_decode.launches + ms.mamba_scan.launches"
+            " + wk.wkv6.launches)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="/nonexistent")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, check=True)

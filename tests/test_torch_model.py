@@ -49,13 +49,29 @@ def test_configs_copied_whole():
         == jax_get_config("llama31-8b-swa").swa_window
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b",
-                                  "granite-moe-1b-a400m", "whisper-medium",
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-medium",
                                   "llava-next-34b"])
 def test_unported_blocks_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
         M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_ssm_archs_initialise_on_cpu(arch):
+    """The O(1)-state models, ported since: weights, a decode cache and a
+    prefill over a few tokens on the CPU (parity with the reference is in
+    tests/test_torch_ssm.py)."""
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert len(params["layers"]) == cfg.n_repeat
+    assert ("shared" in params) == any(b.shared for b in cfg.unit)
+    assert M.init_cache(cfg, 2, 8, device="cpu")
+    logits, _ = M.forward(params, cfg, torch.zeros(1, 4, dtype=torch.long),
+                          mode="prefill")
+    assert logits.shape == (1, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_train_logits(pair):
