@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the three CUDA kernels of src/repro_torch/csrc (flash_decode,
-              mamba_scan, wkv6), one nvcc each, all started together;
+  2. build    the four CUDA kernels of src/repro_torch/csrc (flash_decode,
+              flash_decode_int8, mamba_scan, wkv6), one nvcc each, all
+              started together;
   3. kernel   flash_decode against its plain PyTorch version at the JAX
               package's sweep shapes, the serve path's four shapes
               (llama31-8b G=4 D=128 and zamba2 G=1 D=80, each in a short
@@ -23,17 +24,38 @@ Phases, in order; any failure exits non-zero:
               w in [0.05, 0.06]), at the limits of SCAN_TOL; a planted
               fault made from calls of the unchanged kernel (mamba_scan
               run chunk by chunk: no inter-chunk term; wkv6 plus its
-              diagonal term: a causal mask taking s <= t) must fail them;
+              diagonal term: a causal mask taking s <= t) must fail them.
+              flash_decode_int8 against its plain version on the same
+              quantize_kv codes and scales at the JAX int8 test's shapes,
+              the four serve shapes, the ragged T, the two larger ones and
+              the paper's 64K window (4 x 65536), q in float32 and bfloat16
+              at the limits of TOL (both compute in f32 from the same codes
+              and scales); codes past lengths overwritten with +-99 leave
+              the output bit-equal; two planted faults made from calls of
+              the unchanged kernel (every length one short; ks and vs
+              swapped) must fail the bfloat16 limit; at the JAX shapes the
+              kernel stays within INT8_FLOAT_REL of max|ref| of float
+              attention on the unquantized K/V (the JAX test's criterion);
+              times at every shape beside the bound and the plain version,
+              and, on the same K/V in bf16, flash_decode's and SDPA's;
   4. model    llama31-8b at full width and depth (bf16, seeded random
               weights): ragged prompts prefilled, one decode step through
               the kernel and one through the plain attention on the same
               cache, logits compared within a stated bound; a planted
               fault (attention that skips the last 64-row tile) must
-              exceed that bound;
+              exceed that bound; then one more decode step on the same
+              cache with every layer's attention run as quantize_kv of its
+              own K/V plus ops.decode_attention_int8: exactly 32
+              flash_decode_int8 launches (counts set to 0 just before, read
+              just after), each call held against the plain int8 version
+              on its own inputs at TOL[bfloat16]; each call's error against
+              float attention on the unquantized bf16 cache and the logits
+              against the bf16 kernel step are reported;
   5. serve    `run_policies` at full width over homo / two_pool / fleetopt;
               every request completes, the kernel's launch count equals
-              32 layers x the decode steps taken, and every pool's shape is
-              one that phase 3 checked and timed;
+              32 layers x the decode steps taken, flash_decode_int8 is
+              launched 0 times (no serve path runs it), and every pool's
+              shape is one that phase 3 checked and timed;
   6. model    zamba2-2.7b and then rwkv6-1.6b at full width and depth
               (bf16, seeded random weights): ragged prompts prefilled
               through the scan kernel, every scan call held against the
@@ -48,12 +70,14 @@ Phases, in order; any failure exits non-zero:
   7. serve    `run_policies` for each of the two, as in phase 5, with every
               count set to 0 just before and read just after: flash_decode
               launches = 9 x zamba2's decode steps, mamba_scan = 45 x its
-              prefills, wkv6 = 24 x rwkv6's prefills, and no other kernel;
+              prefills, wkv6 = 24 x rwkv6's prefills, and no other kernel
+              (flash_decode_int8 0);
               then each scan checked and timed at every prompt length the
               serve phase prefilled;
 then one JSON line of kernel numbers (times averaged over the serve
-paths' shapes, weighted by their launches at each) and, last, the device
-line.
+paths' shapes, weighted by their launches at each; flash_decode_int8,
+which no serve path launches, over the four MAIN shapes equally, its
+launches those of phase 4) and, last, the device line.
 
 Needs one CUDA card; exits non-zero without one.  float32 matmuls stay full
 precision: TF32 is turned off for matmuls and cuDNN.
@@ -76,15 +100,18 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_decode as FD  # noqa: E402
+from repro_torch.kernels import flash_decode_int8 as FD8  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import wkv6 as WK  # noqa: E402
-from repro_torch.kernels.ref import (flash_decode_ref,  # noqa: E402
-                                     mamba_scan_ref, wkv6_ref)
+from repro_torch.kernels.ref import (flash_decode_int8_ref,  # noqa: E402
+                                     flash_decode_ref, mamba_scan_ref,
+                                     wkv6_ref)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 flash_decode, mamba_scan, wkv6 = FD.flash_decode, MS.mamba_scan, WK.wkv6
+flash_decode_int8, quantize_kv = FD8.flash_decode_int8, FD8.quantize_kv
 DEVICE = "cuda"
 HBM_BPS = 3.35e12                       # H100 SXM, bytes/s
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
@@ -105,6 +132,14 @@ MAIN = [(16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),
         (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024)]
 EXTRA = [(16, 32, 8, 128, 1024), (16, 32, 8, 128, 8192)]
 RAGGED_T = (16, 32, 8, 128, 1000)       # T a multiple of no tile or piece
+# flash_decode_int8: the JAX int8 test's shapes, then the flash_decode
+# shapes above and the paper's 64K window
+INT8_SWEEP = [(2, 8, 4, 64, 100), (1, 4, 2, 128, 300), (3, 2, 2, 32, 50)]
+INT8_SHAPES = INT8_SWEEP + MAIN + [RAGGED_T] + EXTRA \
+    + [(4, 32, 8, 128, 65536)]
+# int8 vs float attention on the unquantized K/V: the JAX package's
+# criterion (tests/kernels/test_flash_decode_int8.py), max|d| / max|ref|
+INT8_FLOAT_REL = 0.02
 L2_BYTES = 50e6
 # llama31-8b decode, kernel vs plain attention on one cache: the two differ
 # only in the order of f32 sums inside attention before the bf16 rounding
@@ -142,7 +177,8 @@ SCANS = {"mamba_scan": (mamba_scan, mamba_scan_ref),
          "wkv6": (wkv6, wkv6_ref)}
 FAULT = {"mamba_scan": "chunks scanned alone, no inter-chunk term",
          "wkv6": "causal mask taking s <= t"}
-COUNTED = {"flash_decode": flash_decode, "mamba_scan": mamba_scan,
+COUNTED = {"flash_decode": flash_decode,
+           "flash_decode_int8": flash_decode_int8, "mamba_scan": mamba_scan,
            "wkv6": wkv6}
 
 
@@ -265,6 +301,114 @@ def time_kernel(shape, dtype, gen):
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, library_max_abs_err=lib_err,
                input_sets=len(sets))
+    log(f"  timing {json.dumps(row)}")
+    return row
+
+
+# ---- flash_decode_int8 --------------------------------------------------
+
+def int8_inputs(shape, dtype, gen):
+    """q, k, v, lengths as `inputs` gives them, and q with the quantize_kv
+    codes and scales of k and v, lengths: the int8 kernel's arguments."""
+    q, k, v, lengths = inputs(*shape, dtype, gen)
+    return (q, k, v, lengths), (q, *quantize_kv(k, v), lengths)
+
+
+def int8_bound(q, kq, lengths):
+    """`bound` for the int8 cache: the valid rows' codes (2 D bytes) and
+    two f32 scales (8 bytes) per kv head, plus q, out and lengths, vs the
+    same QK and PV operations at q's dtype peak."""
+    B, H, D = q.shape
+    T, K = kq.shape[1], kq.shape[2]
+    valid = int(lengths.clamp(max=T).sum())
+    es = q.element_size()
+    nbytes = valid * K * (2 * D + 8) + 2 * B * H * D * es + 4 * B
+    return _bound(nbytes, 4 * valid * H * D, q.dtype)
+
+
+def int8_err(args, out):
+    """(max abs error against the plain int8 version, within TOL)."""
+    ref = flash_decode_int8_ref(*args)
+    err = float((out.float() - ref).abs().max())
+    ok = out.dtype == args[0].dtype and bool(torch.isfinite(out).all()) \
+        and torch.allclose(out.float(), ref, **TOL[args[0].dtype])
+    return err, ok
+
+
+def check_int8(shape, dtype, gen):
+    (q, k, v, lengths), args = int8_inputs(shape, dtype, gen)
+    out = flash_decode_int8(*args)
+    err, ok = int8_err(args, out)
+    _, kq, vq, ks, vs, _ = args
+    past = torch.arange(shape[4], device=DEVICE)[None, :, None, None] \
+        >= lengths[:, None, None, None]
+    out2 = flash_decode_int8(q, kq.masked_fill(past, 99),
+                             vq.masked_fill(past, -99), ks, vs, lengths)
+    leak = not torch.equal(out, out2)
+    msg = ""
+    if shape in INT8_SWEEP:
+        ref = flash_decode_ref(q, k, v, lengths)
+        rel = float((out.float() - ref).abs().max() / ref.abs().max())
+        ok = ok and rel < INT8_FLOAT_REL
+        msg = (f" vs float attention on the unquantized K/V"
+               f" {rel:.3e} of max|ref| (limit {INT8_FLOAT_REL})")
+    log(f"  kernel flash_decode_int8 {dtype} B,H,K,D,T={shape}:"
+        f" max_abs_err={err:.3e} ({TOL[dtype]})"
+        f" masked_codes_changed={leak}{msg}")
+    if not ok or leak:
+        raise SystemExit(f"flash_decode_int8 disagrees with its plain version"
+                         f" at {shape} {dtype}")
+    return err
+
+
+def control_int8(shape, gen):
+    """Planted faults made from calls of the unchanged kernel: every
+    length one short (a dropped last row) and the K and V scales swapped.
+    The bfloat16 limit must reject both."""
+    _, args = int8_inputs(shape, torch.bfloat16, gen)
+    q, kq, vq, ks, vs, lengths = args
+    for name, bad in (
+            ("each length one short",
+             flash_decode_int8(q, kq, vq, ks, vs, lengths - 1)),
+            ("ks and vs swapped",
+             flash_decode_int8(q, kq, vq, vs, ks, lengths))):
+        err, ok = int8_err(args, bad)
+        log(f"  control flash_decode_int8 bfloat16 B,H,K,D,T={shape}, {name}:"
+            f" max_abs_err={err:.3e}, rejected by {TOL[torch.bfloat16]}:"
+            f" {not ok}")
+        if ok:
+            raise SystemExit(f"the bfloat16 limit does not catch the int8"
+                             f" kernel with {name}")
+
+
+def time_int8(shape, gen):
+    """The int8 kernel, its plain version and its bound at `shape`; beside
+    them, on the same K/V in bf16 (the cache quantize_kv was given),
+    flash_decode and SDPA: the int8 form's yardstick on bytes.  Input sets
+    cycle past 3x the L2 for the int8 bytes (twice that for the bf16)."""
+    dtype = torch.bfloat16
+    first = int8_inputs(shape, dtype, gen)
+    per_set = sum(t.numel() * t.element_size() for t in first[1][1:5])
+    pairs = [first] + [int8_inputs(shape, dtype, gen)
+                       for _ in range(n_sets(per_set) - 1)]
+    lengths = first[0][3]
+    for f16, i8 in pairs[1:]:            # same ragged lengths in every set
+        f16[3].copy_(lengths)
+    f16_sets = [p[0] for p in pairs]
+    i8_sets = [p[1] for p in pairs]
+    T = shape[4]
+    masks = [(torch.arange(T, device=DEVICE)[None] < s[3][:, None])
+             [:, None, None, :] for s in f16_sets]
+    ms = time_ms(flash_decode_int8, i8_sets, 50)
+    plain_ms = time_ms(flash_decode_int8_ref, i8_sets, 10)
+    bf16_ms = time_ms(flash_decode, f16_sets, 50)
+    sdpa_ms = time_ms(lambda i: sdpa(*f16_sets[i][:3], masks[i]),
+                      [(i,) for i in range(len(f16_sets))], 50)
+    b_ms, b_by = int8_bound(first[1][0], first[1][1], lengths)
+    row = dict(shape=dict(zip("BHKDT", shape)), dtype="bfloat16",
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               flash_decode_bf16_ms=bf16_ms, sdpa_bf16_ms=sdpa_ms,
+               input_sets=len(pairs))
     log(f"  timing {json.dumps(row)}")
     return row
 
@@ -393,7 +537,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    jobs = (FD.build, MS.build, WK.build)
+    jobs = (FD.build, FD8.build, MS.build, WK.build)
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda job: job(), jobs))
     log(f"build: {len(built)} libraries in {time.perf_counter() - t0:.2f} s")
@@ -415,6 +559,12 @@ def phase_kernel():
     control_kernel(MAIN[1], gen)
     rows = {shape: time_kernel(shape, torch.bfloat16, gen)
             for shape in MAIN + EXTRA}
+    int8_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in INT8_SHAPES:
+            int8_errs[(shape, dtype)] = check_int8(shape, dtype, gen)
+    control_int8(MAIN[1], gen)
+    int8_rows = {shape: time_int8(shape, gen) for shape in INT8_SHAPES}
     for shape in MAMBA_SHAPES:
         check_scan("mamba_scan", shape, gen)
     for shape in WKV_SHAPES:
@@ -423,7 +573,8 @@ def phase_kernel():
     # the mamba fault shows from the second chunk on: S > 128
     control_scan("mamba_scan", MAMBA_SHAPES[4], gen)
     control_scan("wkv6", WKV_SHAPES[4], gen)
-    return max(errs[(s, torch.bfloat16)] for s in MAIN), rows
+    return (max(errs[(s, torch.bfloat16)] for s in MAIN), rows,
+            max(int8_errs[(s, torch.bfloat16)] for s in MAIN), int8_rows)
 
 
 def rel_rows(a, b):
@@ -500,6 +651,57 @@ def phase_model(cfg, params):
                          " have no near-tie")
     if min(rel_fault) <= LOGIT_REL_BOUND:
         raise SystemExit("the logits bound does not catch a skipped tile")
+    return phase_model_int8(cfg, params, tokens, cache, pos, a)
+
+
+def phase_model_int8(cfg, params, tokens, cache, pos, a):
+    """One more decode step on the same cache with every layer's attention
+    run as quantize_kv of that layer's K/V plus ops.decode_attention_int8,
+    every count set to 0 just before and read just after; each call held
+    against the plain int8 version on its own inputs.  Returns the
+    flash_decode_int8 launches of the step."""
+    seen = dict(calls=0, err=0.0, bad=0, rel16=[])
+
+    def int8_attention(q, k, v, lengths, *, impl=None):
+        args = (q, *quantize_kv(k, v), lengths)
+        out = ops.decode_attention_int8(*args, impl=impl)
+        err, ok = int8_err(args, out)
+        ref16 = flash_decode_ref(q, k, v, lengths)
+        seen["calls"] += 1
+        seen["err"] = max(seen["err"], err)
+        seen["bad"] += not ok
+        seen["rel16"].append(float((out.float() - ref16).abs().max()
+                                   / ref16.abs().max()))
+        return out
+
+    for fn in COUNTED.values():
+        fn.launches = 0
+    real, ops.decode_attention = ops.decode_attention, int8_attention
+    try:
+        d, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos)
+    finally:
+        ops.decode_attention = real
+    counts = {name: fn.launches for name, fn in COUNTED.items()}
+    d = d[:, 0]
+    rel, agree, _, _ = rel_rows(d, a)
+    log(f"  int8 step: {seen['calls']} attention calls through quantize_kv"
+        f" + flash_decode_int8, launches {counts}; max abs error vs the"
+        f" plain int8 version {seen['err']:.3e} ({TOL[torch.bfloat16]}),"
+        f" {seen['bad']} calls outside it")
+    log(f"  int8 step: per call max|d|/max|ref| vs float attention on the"
+        f" unquantized bf16 cache {min(seen['rel16']):.3e}"
+        f"-{max(seen['rel16']):.3e}; logits vs the bf16 kernel step,"
+        f" max|d|/max|logits| {[f'{r:.3e}' for r in rel]}, top-1 equal"
+        f" {agree} (reported)")
+    if d.shape != (len(PLENS), cfg.vocab) or not bool(torch.isfinite(d).all()):
+        raise SystemExit(f"int8 decode logits malformed: {tuple(d.shape)}")
+    want = dict({n: 0 for n in counts},
+                flash_decode_int8=cfg.attn_block_count)
+    if seen["calls"] != cfg.attn_block_count or counts != want \
+            or seen["bad"]:
+        raise SystemExit("the int8 decode step did not run flash_decode_int8"
+                         " once per layer within its limit")
+    return counts["flash_decode_int8"]
 
 
 def to_f32(cfg, params):
@@ -709,6 +911,7 @@ def phase_serve(cfg, params):
                    for kind, block in (("mamba_scan", "mamba2"),
                                        ("wkv6", "rwkv6"))}
     want = dict(flash_decode=cfg.attn_block_count * steps,
+                flash_decode_int8=0,
                 **{k: n * prefills for k, n in per_prefill.items()})
     log(f"  launches {counts}; expected {want} ({cfg.attn_block_count}"
         f" attention blocks x {steps} decode steps,"
@@ -766,11 +969,11 @@ def main() -> int:
     log("[2] build")
     phase_build()
     log("[3] kernel vs plain")
-    max_err, fd_rows = phase_kernel()
+    max_err, fd_rows, int8_max_err, int8_rows = phase_kernel()
     log("[4] model: llama31-8b, full width")
     cfg, params = load_model("llama31-8b")
     with torch.inference_mode():
-        phase_model(cfg, params)
+        int8_launches = phase_model(cfg, params)
     log("[5] serve llama31-8b: " + json.dumps(SERVE))
     launches = Counter()
     fd_launches = Counter()
@@ -817,7 +1020,18 @@ def main() -> int:
         source="src/repro_torch/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_decode.py:61",
         launches=launches["flash_decode"], max_abs_err=max_err, **fd_mean,
-        dtype="bfloat16", by_shape=list(fd_rows.values()))]
+        dtype="bfloat16", by_shape=list(fd_rows.values())),
+        dict(name="flash_decode_int8", route="cuda",
+             source="src/repro_torch/csrc/flash_decode_int8.cu",
+             replaces="src/repro/kernels/flash_decode_int8.py:73",
+             launches=int8_launches, max_abs_err=int8_max_err,
+             **weighted(int8_rows, {s: 1 for s in MAIN}),
+             library_ms=None, dtype="bfloat16",
+             library_note="no one PyTorch call computes attention over an"
+                          " int8 cache with per-row scales; flash_decode and"
+                          " SDPA on the bf16 cache are in by_shape",
+             mean_over="the four MAIN shapes, equally weighted",
+             by_shape=list(int8_rows.values()))]
     for kind, line in (("mamba_scan", 57), ("wkv6", 64)):
         kernels.append(dict(
             name=kind, route="cuda", source=f"src/repro_torch/csrc/{kind}.cu",

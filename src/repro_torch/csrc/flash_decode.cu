@@ -27,43 +27,17 @@
 // Plain C interface, built with nvcc and loaded with ctypes
 // (src/repro_torch/kernels/flash_decode.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
 constexpr int BLOCK_T = 64;   // K/V rows per tile
-constexpr int CHUNK = 256;    // rows per block (kernels/flash_decode.py CHUNK)
 constexpr int THREADS = 128;  // 4 warps
 constexpr int N_WARPS = THREADS / 32;
 constexpr int ROWS = 4;       // K rows a warp loads before reducing
 constexpr int V_ROWS = 16;    // V values a thread loads before accumulating
 constexpr int MAX_D = 256;    // head_dim limit (8 values per lane in phase 1)
 constexpr int MAX_G = 16;     // query heads per kv head
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // Pass 1.  grid (K, B, n_split); block THREADS.  GB >= G is the head count
 // the register arrays are sized for.  Shared memory, all f32:
@@ -222,37 +196,6 @@ flash_decode_part(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass 2.  grid (H, B); block THREADS.  Merges the pieces below lengths[b]:
-// out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M = max_s m_s.
-// A sequence with lengths[b] <= 0 has no piece and gets 0 (so does
-// kernels/ref.py; the Pallas kernel averages V over all T rows there).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_merge(const float* __restrict__ m_part,
-                   const float* __restrict__ l_part,
-                   const float* __restrict__ acc_part,
-                   const int32_t* __restrict__ lengths, T* __restrict__ out,
-                   int t_len, int n_heads, int head_dim, int n_split) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = min(max(lengths[b], 0), t_len);
-  const int pieces = (len + CHUNK - 1) / CHUNK;
-  const int64_t row = static_cast<int64_t>(b) * n_heads + h;
-  const float* m = m_part + row * n_split;
-  const float* l = l_part + row * n_split;
-  float mx = NEG_INF;
-  for (int s = 0; s < pieces; ++s) mx = fmaxf(mx, m[s]);
-  float denom = 0.f;
-  for (int s = 0; s < pieces; ++s) denom += l[s] * expf(m[s] - mx);
-  const float inv = 1.f / fmaxf(denom, 1e-30f);
-  for (int d = threadIdx.x; d < head_dim; d += THREADS) {
-    float o = 0.f;
-    for (int s = 0; s < pieces; ++s)
-      o += acc_part[(row * n_split + s) * head_dim + d] * expf(m[s] - mx);
-    store(out + row * head_dim + d, o * inv);
-  }
-}
-
 template <typename T, int GB>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* m_part, void* l_part, void* acc_part, int B,
@@ -270,7 +213,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       1.0f / sqrtf(static_cast<float>(D)));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_merge<T><<<dim3(H, B), THREADS, 0, stream>>>(
+  decode_merge<T><<<dim3(H, B), MERGE_THREADS, 0, stream>>>(
       static_cast<const float*>(m_part), static_cast<const float*>(l_part),
       static_cast<const float*>(acc_part),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), T_len, H,

@@ -3,7 +3,8 @@
 Each source is compiled on first use with nvcc for sm_90a into a shared
 library with a plain C interface under `build/repro_torch/` at the
 repository root, and loaded with ctypes.  The library's file name carries
-a hash of the source, so an edited source is rebuilt.
+a hash of the source and of the shared headers (csrc/*.cuh), so an edited
+source or header is rebuilt.
 """
 from __future__ import annotations
 
@@ -38,7 +39,10 @@ def build(source: str) -> Tuple[Path, str]:
     register and shared-memory report; empty when the build was reused).
     """
     src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if lib.exists():
         return lib, ""

@@ -13,9 +13,11 @@ from typing import Optional
 import torch
 
 from . import flash_decode as _fd
+from . import flash_decode_int8 as _fd8
 from . import mamba_scan as _ms
 from . import wkv6 as _wk
-from .ref import flash_decode_ref, mamba_scan_ref, wkv6_ref
+from .ref import (flash_decode_int8_ref, flash_decode_ref, mamba_scan_ref,
+                  wkv6_ref)
 
 
 def _plain(impl: Optional[str], x: torch.Tensor, name: str) -> bool:
@@ -34,6 +36,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _fd.check_inputs(q, k, v, lengths)
         return flash_decode_ref(q, k, v, lengths).to(q.dtype)
     return _fd.flash_decode(q, k, v, lengths)
+
+
+def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,
+                          vq: torch.Tensor, ks: torch.Tensor,
+                          vs: torch.Tensor, lengths: torch.Tensor, *,
+                          impl: Optional[str] = None) -> torch.Tensor:
+    """`decode_attention` over an int8 K/V cache (`quantize_kv`'s codes and
+    per-(token, head) scales): (B,H,D) x int8 (B,T,K,D) -> (B,H,D) in
+    q.dtype."""
+    if _plain(impl, q, "decode_attention_int8"):
+        _fd8.check_inputs(q, kq, vq, ks, vs, lengths)
+        return flash_decode_int8_ref(q, kq, vq, ks, vs, lengths).to(q.dtype)
+    return _fd8.flash_decode_int8(q, kq, vq, ks, vs, lengths)
 
 
 def ssd_scan(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,

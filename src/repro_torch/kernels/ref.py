@@ -35,6 +35,20 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, D)
 
 
+def flash_decode_int8_ref(q: torch.Tensor, kq: torch.Tensor,
+                          vq: torch.Tensor, ks: torch.Tensor,
+                          vs: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """Decode GQA attention over an int8 K/V cache: the codes dequantized in
+    f32 (code * per-(token, head) scale), then `flash_decode_ref`.
+
+    kq, vq: int8 (B, T, K, D); ks, vs: float32 (B, T, K).  Returns
+    (B, H, D) in float32; lengths <= 0 give a zero output, as there.
+    """
+    return flash_decode_ref(q, kq.float() * ks[..., None],
+                            vq.float() * vs[..., None], lengths)
+
+
 def mamba_scan_ref(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                    lA: torch.Tensor,
                    init_state: Optional[torch.Tensor] = None):

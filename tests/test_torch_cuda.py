@@ -1,7 +1,10 @@
 """Port kernels on the card: each kernel against its plain version.
 
 flash_decode at the JAX sweep shapes and the serve path's (llama31-8b:
-G = 4, D = 128; zamba2's shared attention: G = 1, D = 80); mamba_scan
+G = 4, D = 128; zamba2's shared attention: G = 1, D = 80);
+flash_decode_int8 at the JAX int8 sweep shapes and the same serve shapes,
+on codes and scales from `quantize_kv` (which is also held bit-equal to
+its CPU result); mamba_scan
 and wkv6 at the JAX sweep shapes and the full-width prefill shapes
 (zamba2: nh 80, hd = ds = 64; rwkv6: H 32, hd 64), y and final state.
 
@@ -13,8 +16,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode_int8 import (flash_decode_int8,
+                                                   quantize_kv)
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.ref import flash_decode_ref, mamba_scan_ref, wkv6_ref
+from repro_torch.kernels.ref import (flash_decode_int8_ref, flash_decode_ref,
+                                     mamba_scan_ref, wkv6_ref)
 from repro_torch.kernels.wkv6 import wkv6
 
 pytestmark = pytest.mark.cuda
@@ -72,6 +78,62 @@ def test_flash_decode_zero_length_on_card(gen, dtype):
     assert not bool(ref[0].any()) and not bool(out[0].any())
     assert not bool(out[2].any())
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+
+
+def _int8_inputs(gen, B, H, K, D, T, dtype):
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, T, K, D, generator=gen, device="cuda")
+    v = torch.randn(B, T, K, D, generator=gen, device="cuda")
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return (q, *quantize_kv(k, v), lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,D,T", [
+    (2, 8, 4, 64, 100), (1, 4, 2, 128, 300), (3, 2, 2, 32, 50),
+    (16, 32, 8, 128, 256), (4, 32, 8, 128, 1024), (16, 32, 8, 128, 1000),
+    (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024), (2, 32, 2, 16, 77),
+])
+def test_flash_decode_int8_matches_plain_on_card(gen, B, H, K, D, T, dtype):
+    """Kernel and plain version compute in f32 from the same codes and
+    scales, so they are held at the limits of flash_decode."""
+    args = _int8_inputs(gen, B, H, K, D, T, dtype)
+    before = flash_decode_int8.launches
+    out = flash_decode_int8(*args)
+    torch.cuda.synchronize()
+    assert flash_decode_int8.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, H, D)
+    torch.testing.assert_close(out.float(), flash_decode_int8_ref(*args),
+                               **TOL[dtype])
+
+
+def test_flash_decode_int8_masked_codes_and_zero_length_on_card(gen):
+    """Codes past lengths overwritten with +-99 leave the output bit-equal;
+    lengths <= 0 give a zero row as in the plain version."""
+    q, kq, vq, ks, vs, _ = _int8_inputs(gen, 3, 8, 2, 64, 300,
+                                        torch.bfloat16)
+    lengths = torch.tensor([0, 257, -1], dtype=torch.int32, device="cuda")
+    out = flash_decode_int8(q, kq, vq, ks, vs, lengths)
+    ref = flash_decode_int8_ref(q, kq, vq, ks, vs, lengths)
+    assert not bool(out[0].any()) and not bool(out[2].any())
+    torch.testing.assert_close(out.float(), ref, **TOL[torch.bfloat16])
+    lengths = torch.tensor([1, 257, 300], dtype=torch.int32, device="cuda")
+    past = (torch.arange(300, device="cuda")[None, :, None, None]
+            >= lengths[:, None, None, None])
+    a = flash_decode_int8(q, kq, vq, ks, vs, lengths)
+    b = flash_decode_int8(q, kq.masked_fill(past, 99),
+                          vq.masked_fill(past, -99), ks, vs, lengths)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_card_matches_cpu(gen, dtype):
+    k = (3 * torch.randn(4, 1024, 8, 128, generator=gen, device="cuda")
+         ).to(dtype)
+    v = torch.randn(4, 1024, 8, 128, generator=gen, device="cuda").to(dtype)
+    for a, b in zip(quantize_kv(k, v), quantize_kv(k.cpu(), v.cpu())):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("B,S,nh,hd,ds", [

@@ -63,9 +63,11 @@ def test_entry_points_refuse_missing_cuda():
 
 def test_kernel_module_imports_without_nvcc():
     code = ("import repro_torch.kernels.flash_decode as fd, "
+            "repro_torch.kernels.flash_decode_int8 as fd8, "
             "repro_torch.kernels.mamba_scan as ms, "
             "repro_torch.kernels.wkv6 as wk; "
-            "print(fd.flash_decode.launches + ms.mamba_scan.launches"
+            "print(fd.flash_decode.launches"
+            " + fd8.flash_decode_int8.launches + ms.mamba_scan.launches"
             " + wk.wkv6.launches)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="/nonexistent")
     out = subprocess.run([sys.executable, "-c", code], env=env,
