@@ -11,13 +11,17 @@ Phases, in order; any failure exits non-zero:
   3. kernel   flash_decode against its plain PyTorch version at the JAX
               package's sweep shapes, the serve path's four shapes
               (llama31-8b G=4 D=128 and zamba2 G=1 D=80, each in a short
-              pool 16 slots x 256 and a long pool 4 x 1024) and two larger
-              ones, float32 and bfloat16 at the limits of TOL; masked
-              entries overwritten with +-999 leave the output unchanged; a
-              planted fault (every length one short) must fail the
-              bfloat16 limit; times at those shapes (CUDA events, warmed
-              up, inputs cycled through more than the 50 MB L2), beside the
-              bound and one SDPA call as the library yardstick.
+              pool 16 slots x 256 and a long pool 4 x 1024), two larger
+              ones, the ragged T and the paper's 64K window (4 x 65536),
+              float32 and bfloat16 at the limits of TOL; masked entries
+              overwritten with +-999 leave the output unchanged; a planted
+              fault (every length one short) must fail the bfloat16 limit;
+              times at those shapes beside the bound and one SDPA call as
+              the library yardstick, each both eager (CUDA events, warmed
+              up, inputs cycled through more than the 50 MB L2) and as one
+              CUDA-graph replay of the same 50 calls (device time, without
+              the host's per-call work), with the piece size and block
+              count `plan` chose.
               mamba_scan and wkv6 against their plain sequential versions
               (y and final state) at the JAX sweep shapes and the
               full-width prefill shapes at S = 37, 1000, 1015 (wkv6 also at
@@ -75,9 +79,10 @@ Phases, in order; any failure exits non-zero:
               then each scan checked and timed at every prompt length the
               serve phase prefilled;
 then one JSON line of kernel numbers (times averaged over the serve
-paths' shapes, weighted by their launches at each; flash_decode_int8,
-which no serve path launches, over the four MAIN shapes equally, its
-launches those of phase 4) and, last, the device line.
+paths' shapes, weighted by their launches at each, flash_decode's also as
+device_ms and library_device_ms; flash_decode_int8, which no serve path
+launches, over the four MAIN shapes equally, its launches those of
+phase 4) and, last, the device line.
 
 Needs one CUDA card; exits non-zero without one.  float32 matmuls stay full
 precision: TF32 is turned off for matmuls and cuDNN.
@@ -132,11 +137,11 @@ MAIN = [(16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),
         (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024)]
 EXTRA = [(16, 32, 8, 128, 1024), (16, 32, 8, 128, 8192)]
 RAGGED_T = (16, 32, 8, 128, 1000)       # T a multiple of no tile or piece
+LONG = (4, 32, 8, 128, 65536)           # the paper's 64K window
 # flash_decode_int8: the JAX int8 test's shapes, then the flash_decode
 # shapes above and the paper's 64K window
 INT8_SWEEP = [(2, 8, 4, 64, 100), (1, 4, 2, 128, 300), (3, 2, 2, 32, 50)]
-INT8_SHAPES = INT8_SWEEP + MAIN + [RAGGED_T] + EXTRA \
-    + [(4, 32, 8, 128, 65536)]
+INT8_SHAPES = INT8_SWEEP + MAIN + [RAGGED_T] + EXTRA + [LONG]
 # int8 vs float attention on the unquantized K/V: the JAX package's
 # criterion (tests/kernels/test_flash_decode_int8.py), max|d| / max|ref|
 INT8_FLOAT_REL = 0.02
@@ -229,6 +234,28 @@ def time_ms(fn, sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, sets, iters=50):
+    """Device ms per call: one CUDA-graph replay of `iters` calls cycling
+    through `sets` (captured after a warm-up), timed with CUDA events."""
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def n_sets(per_set_bytes, cap=256):
     """Input sets to cycle through so that a pass exceeds 3x the L2 (at
     most `cap`: the scans' shortest prompts stay in the L2)."""
@@ -290,17 +317,28 @@ def time_kernel(shape, dtype, gen):
     T = shape[4]
     masks = [(torch.arange(T, device=DEVICE)[None] < s[3][:, None])
              [:, None, None, :] for s in sets]
+    lib_sets = [(i,) for i in range(len(sets))]
+
+    def lib(i):
+        return sdpa(*sets[i][:3], masks[i])
+
     ms = time_ms(flash_decode, sets, 50)
+    device_ms = graph_ms(flash_decode, sets)
     plain_ms = time_ms(flash_decode_ref, sets, 10)
-    lib_ms = time_ms(lambda i: sdpa(*sets[i][:3], masks[i]),
-                     [(i,) for i in range(len(sets))], 50)
+    lib_ms = time_ms(lib, lib_sets, 50)
+    lib_device_ms = graph_ms(lib, lib_sets)
     lib_err = float((sdpa(q, k, v, masks[0]).float()
                      - flash_decode_ref(q, k, v, lengths)).abs().max())
     b_ms, b_by = bound(q, k, lengths)
+    B, _, K, _, T = shape
+    piece, n_split = FD.plan(B, K, T, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     row = dict(shape=dict(zip("BHKDT", shape)), dtype=str(dtype).split(".")[1],
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, library_max_abs_err=lib_err,
-               input_sets=len(sets))
+               ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_device_ms=lib_device_ms,
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / device_ms,
+               piece=piece, blocks=n_split * K * B,
+               library_max_abs_err=lib_err, input_sets=len(sets))
     log(f"  timing {json.dumps(row)}")
     return row
 
@@ -552,13 +590,13 @@ def phase_kernel():
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in SWEEP + MAIN + EXTRA + [RAGGED_T]:
+        for shape in SWEEP + MAIN + EXTRA + [RAGGED_T, LONG]:
             errs[(shape, dtype)] = check_kernel(shape, dtype, gen)
         for shape in MAIN:
             check_kernel(shape, dtype, gen, strided_q=True)
     control_kernel(MAIN[1], gen)
     rows = {shape: time_kernel(shape, torch.bfloat16, gen)
-            for shape in MAIN + EXTRA}
+            for shape in MAIN + EXTRA + [RAGGED_T, LONG]}
     int8_errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in INT8_SHAPES:
@@ -1012,9 +1050,10 @@ def main() -> int:
     for shape, n in fd_launches.items():
         fd_rows[shape]["serve_launches"] = n
     fd_mean = weighted(fd_rows, fd_launches)
-    fd_mean["library_ms"] = sum(
-        n * fd_rows[s]["library_ms"] for s, n in fd_launches.items()) \
-        / sum(fd_launches.values())
+    for key in ("device_ms", "library_ms", "library_device_ms"):
+        fd_mean[key] = sum(n * fd_rows[s][key]
+                           for s, n in fd_launches.items()) \
+            / sum(fd_launches.values())
     kernels = [dict(
         name="flash_decode", route="cuda",
         source="src/repro_torch/csrc/flash_decode.cu",

@@ -19,18 +19,18 @@
 //     products exactly, q . (kq_t ks_t) = ks_t (q . kq_t) and
 //     p_t (vq_t vs_t) = (p_t vs_t) vq_t, so it costs one multiply per row
 //     and head, not one per element;
-//   * the structure of csrc/flash_decode.cu: the G = H / K query heads of a
-//     group share every row a block reads; T is split into CHUNK-row
-//     pieces, one block per (kv head, sequence, piece), each with an online
-//     softmax in f32, and decode_merge (decode_common.cuh) combines them.
+//   * the G = H / K query heads of a group share every row a block reads;
+//     T is split into fixed CHUNK-row pieces, one block per (kv head,
+//     sequence, piece), each with an online softmax in f32, and a second
+//     pass, decode_merge (below), combines them.
 //     Pieces at or past lengths[b] exit at once, so the bytes moved follow
 //     the valid length, which is what the bound counts;
 //   * K rows arrive as 16-byte loads, D / 16 lanes a row (8 at D = 128),
 //     a warp keeping 4 loads a lane in flight; V rows as 4-byte loads, a
 //     thread keeping V_ROWS of them in flight and its (G x 4) sums in
 //     registers for the whole piece.
-// Not yet done (later work): TMA / cp.async double buffering, wgmma, a
-// persistent schedule.
+// Not yet done (later work): csrc/flash_decode.cu's layout (pieces sized
+// by occupancy, a cp.async ring per warp, one launch), wgmma.
 //
 // Plain C interface, built with nvcc and loaded with ctypes
 // (src/repro_torch/kernels/flash_decode_int8.py).
@@ -39,6 +39,8 @@
 
 namespace {
 
+constexpr int CHUNK = 256;    // rows per piece (kernels/flash_decode_int8.py)
+constexpr int MERGE_THREADS = 128;
 constexpr int BLOCK_T = 64;   // rows per tile
 constexpr int THREADS = 128;  // 4 warps
 constexpr int N_WARPS = THREADS / 32;
@@ -311,6 +313,37 @@ flash_decode_int8_part(const T* __restrict__ q,
   for (int g = tid; g < G; g += THREADS) {
     m_part[(row0 + g) * n_split + split] = m_s[g];
     l_part[(row0 + g) * n_split + split] = l_s[g];
+  }
+}
+
+// grid (H, B); block MERGE_THREADS.  Merges the pieces below lengths[b]:
+// out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M = max_s m_s.
+// A sequence with lengths[b] <= 0 has no piece and gets 0 (so does
+// kernels/ref.py; the Pallas kernels average V over all T rows there).
+template <typename T>
+__global__ void __launch_bounds__(MERGE_THREADS)
+decode_merge(const float* __restrict__ m_part,
+             const float* __restrict__ l_part,
+             const float* __restrict__ acc_part,
+             const int32_t* __restrict__ lengths, T* __restrict__ out,
+             int t_len, int n_heads, int head_dim, int n_split) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int len = min(max(lengths[b], 0), t_len);
+  const int pieces = (len + CHUNK - 1) / CHUNK;
+  const int64_t row = static_cast<int64_t>(b) * n_heads + h;
+  const float* m = m_part + row * n_split;
+  const float* l = l_part + row * n_split;
+  float mx = NEG_INF;
+  for (int s = 0; s < pieces; ++s) mx = fmaxf(mx, m[s]);
+  float denom = 0.f;
+  for (int s = 0; s < pieces; ++s) denom += l[s] * expf(m[s] - mx);
+  const float inv = 1.f / fmaxf(denom, 1e-30f);
+  for (int d = threadIdx.x; d < head_dim; d += MERGE_THREADS) {
+    float o = 0.f;
+    for (int s = 0; s < pieces; ++s)
+      o += acc_part[(row * n_split + s) * head_dim + d] * expf(m[s] - mx);
+    store(out + row * head_dim + d, o * inv);
   }
 }
 

@@ -6,7 +6,7 @@ flash_decode — blocked GQA decode attention (the H(L)*n KV-scan term of
 flash_decode_int8
              — the same attention over an int8 K/V cache (per-(token, head)
                f32 scales, widened in registers), CUDA C++ in
-               csrc/flash_decode_int8.cu (the two share
+               csrc/flash_decode_int8.cu (the two share the helpers of
                csrc/decode_common.cuh), and `quantize_kv`, which makes
                such a cache;
 mamba_scan   — the Mamba2 chunked SSD scan of a prefill, csrc/mamba_scan.cu;

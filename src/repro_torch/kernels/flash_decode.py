@@ -4,11 +4,14 @@ Replaces the Pallas TPU kernel `repro.kernels.flash_decode.flash_decode`.
 The kernel is built on first use by `kernels.build` (nvcc for sm_90a, a
 plain C interface loaded with ctypes).
 
-The wrapper only checks and launches: on a CUDA tensor it launches the
-kernel or raises, and it raises on any other device.  Which version runs
-is decided in `ops.decode_attention`.  `flash_decode.launches` counts
-kernel launches, so a run can show that its main path went through the
-kernel.
+The wrapper only checks, plans and launches: on a CUDA tensor it launches
+the kernel or raises, and it raises on any other device.  Which version
+runs is decided in `ops.decode_attention`.  `plan` cuts T into pieces by
+the card's SM count; `wide_path` is the rule for 16-byte loads.  Partial
+softmax states of multi-piece sequences go to a workspace kept per device
+and grown on demand, so a call allocates only its output.
+`flash_decode.launches` counts kernel launches, so a run can show that its
+main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -22,8 +25,16 @@ from . import build as _build
 SOURCE = "flash_decode.cu"
 MAX_G = 16        # query heads per kv head (csrc MAX_G)
 MAX_D = 256       # head_dim (csrc MAX_D)
-CHUNK = 256       # KV rows per block; T is split into ceil(T / CHUNK) pieces
+MIN_PIECE = 64    # a piece is a multiple of 64 rows
+MAX_PIECE = 512   # longer pieces gain no bandwidth, only a longer tail
+MAX_SPLIT = 256   # pieces per sequence (csrc MAX_SPLIT)
+MIN_BLOCKS_PER_SM = 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_n_sm: dict[int, int] = {}
+_workspace: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+# buffers a captured CUDA graph may still point at, kept alive
+_retired: list[tuple[torch.Tensor, torch.Tensor]] = []
 
 
 def build() -> tuple[Path, str]:
@@ -33,10 +44,69 @@ def build() -> tuple[Path, str]:
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.flash_decode_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_int64] * 8
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(B: int, K: int, T: int, n_sm: int) -> tuple[int, int]:
+    """Rows per piece and pieces per sequence, (piece, n_split).
+
+    The fewest pieces that give the grid (K, B, n_split) at least
+    MIN_BLOCKS_PER_SM blocks per SM (every piece past the first of a
+    sequence costs a merge), each a multiple of MIN_PIECE rows, at most
+    MAX_PIECE rows (longer pieces leave a longer tail of blocks) and no
+    more than MAX_SPLIT pieces (the merging block keeps a weight per piece
+    in shared memory).  Piece s holds rows [s * piece, (s+1) * piece)
+    below T.
+    """
+    want = max(1, _cdiv(MIN_BLOCKS_PER_SM * n_sm, B * K))
+    piece = T // want // MIN_PIECE * MIN_PIECE   # at least `want` pieces
+    piece = min(max(piece, MIN_PIECE), MAX_PIECE)
+    piece = max(piece, _cdiv(_cdiv(T, MAX_SPLIT), MIN_PIECE) * MIN_PIECE)
+    return piece, _cdiv(T, piece)
+
+
+def wide_path(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """True where K and V can be read as 16-byte segments: D a multiple of
+    VEC = 16 / element size, both bases on 16-byte boundaries and every
+    stride of batch, token and head a multiple of VEC elements.  Otherwise
+    the kernel's narrow path loads single elements."""
+    vec = 16 // k.element_size()
+    return k.shape[3] % vec == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3])
+        for t in (k, v))
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _n_sm.get(device.index)
+    if n is None:
+        n = _n_sm[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _scratch(device: torch.device, n_part: int, n_tickets: int):
+    """The device's workspace, grown to n_part f32 and n_tickets int32
+    (tickets start at 0; every launch leaves them at 0)."""
+    ws = _workspace.get(device.index)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: its workspace must grow, which"
+                               " a CUDA graph capture cannot record; call it"
+                               " once at this shape before capturing")
+        if ws is not None:
+            _retired.append(ws)
+            n_part = max(n_part, 2 * ws[0].numel())
+            n_tickets = max(n_tickets, ws[1].numel())
+        ws = _workspace[device.index] = (
+            torch.empty(n_part, dtype=torch.float32, device=device),
+            torch.zeros(n_tickets, dtype=torch.int32, device=device))
+    return ws
 
 
 def check_inputs(q, k, v, lengths) -> None:
@@ -76,31 +146,31 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Attends query head h to kv head h // (H/K) over t < lengths[b];
     lengths above T count as T, and a sequence with lengths[b] <= 0 gets a
-    zero output.  Output in q.dtype.  CUDA tensors only.
+    zero output.  Output in q.dtype.  CUDA tensors only.  Calls on one
+    device share its workspace, so they must not overlap on two streams.
     """
     check_inputs(q, k, v, lengths)
-    if q.device.type != "cuda":
+    dev = q.device
+    if dev.type != "cuda":
         raise ValueError(f"flash_decode launches a CUDA kernel; got tensors"
-                         f" on {q.device}")
+                         f" on {dev}")
     lib = _build.load(SOURCE, _configure)
     B, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
-    n_split = -(-T // CHUNK)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    # per-piece softmax state (m, l, unnormalised acc) the merge pass reads
-    m_part = torch.empty((B, H, n_split), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, H, n_split, D), dtype=torch.float32,
-                           device=q.device)
-    with torch.cuda.device(q.device):
+    piece, n_split = plan(B, K, T, _sm_count(dev))
+    part = tickets = 0
+    if n_split > 1:
+        ws = _scratch(dev, B * H * n_split * (D + 2), B * K)
+        part, tickets = ws[0].data_ptr(), ws[1].data_ptr()
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
+                                   *v.stride()[:3])
+    with torch.cuda.device(dev):
         err = lib.flash_decode_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), acc_part.data_ptr(), B, T, H, K, D, n_split,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _DTYPE_CODE[q.dtype], wide_path(k, v), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part, tickets, B, T, H, K, D, piece, n_split, strides,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed (code {err})")
     flash_decode.launches += 1

@@ -24,9 +24,10 @@ from pathlib import Path
 import torch
 
 from . import build as _build
-from .flash_decode import _DTYPE_CODE, CHUNK  # csrc/decode_common.cuh
+from .flash_decode import _DTYPE_CODE
 
 SOURCE = "flash_decode_int8.cu"
+CHUNK = 256       # KV rows per block; T is split into ceil(T / CHUNK) pieces
 MAX_G = 16        # query heads per kv head (csrc MAX_G)
 MAX_D = 256       # head_dim (csrc MAX_D), a multiple of 16
 

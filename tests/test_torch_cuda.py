@@ -1,7 +1,10 @@
 """Port kernels on the card: each kernel against its plain version.
 
 flash_decode at the JAX sweep shapes and the serve path's (llama31-8b:
-G = 4, D = 128; zamba2's shared attention: G = 1, D = 80);
+G = 4, D = 128; zamba2's shared attention: G = 1, D = 80), at D from 8 to
+256, at T and lengths on the edges of its pieces, on its narrow path, with
+a strided q; two runs bit-identical, and a CUDA-graph replay equal to the
+eager call;
 flash_decode_int8 at the JAX int8 sweep shapes and the same serve shapes,
 on codes and scales from `quantize_kv` (which is also held bit-equal to
 its CPU result); mamba_scan
@@ -15,7 +18,7 @@ This file imports no jax, so it runs where only PyTorch is installed.
 import pytest
 import torch
 
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, plan, wide_path
 from repro_torch.kernels.flash_decode_int8 import (flash_decode_int8,
                                                    quantize_kv)
 from repro_torch.kernels.mamba_scan import mamba_scan
@@ -42,26 +45,142 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _fd_inputs(gen, B, H, K, D, T, dtype, lengths=None):
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, T, K, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, T, K, D, generator=gen, device="cuda").to(dtype)
+    if lengths is None:
+        lengths = torch.randint(1, T + 1, (B,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, lengths
+
+
+def _fd_check(q, k, v, lengths):
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), flash_decode_ref(q, k, v,
+                                                             lengths),
+                               **TOL[q.dtype])
+    return out
+
+
+def _n_sm():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,K,D,T", [
     (2, 8, 4, 64, 100), (1, 16, 8, 128, 300), (3, 4, 4, 32, 64),
     (1, 4, 1, 128, 513), (16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),
     (16, 32, 8, 128, 1024), (2, 32, 2, 120, 77),
     (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024),
+    (2, 16, 4, 256, 300), (1, 16, 1, 256, 2000), (2, 24, 8, 80, 3000),
+    (3, 16, 2, 8, 50), (16, 32, 8, 128, 8192), (2, 8, 8, 32, 20000),
 ])
 def test_flash_decode_matches_plain_on_card(gen, B, H, K, D, T, dtype):
-    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, T, K, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, T, K, D, generator=gen, device="cuda").to(dtype)
-    lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-    before = flash_decode.launches
-    out = flash_decode(q, k, v, lengths)
+    _fd_check(*_fd_inputs(gen, B, H, K, D, T, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("B,H,K,D", [(16, 32, 8, 128), (4, 32, 32, 80),
+                                     (1, 8, 1, 64), (2, 16, 4, 256)])
+def test_flash_decode_piece_edges_on_card(gen, B, H, K, D, edge, dtype):
+    """T and lengths one row below, at and above the ends of the first and
+    third pieces `plan` gives on this card (a sequence of one piece writes
+    out directly, one of more pieces is merged by the last block)."""
+    piece = plan(B, K, 64, _n_sm())[0]
+    T = 3 * piece + edge
+    lens = [piece + edge, 3 * piece + edge, piece, 1, T, 2 * piece + 1]
+    q, k, v, lengths = _fd_inputs(gen, B, H, K, D, T, dtype,
+                                  (lens * B)[:B])
+    _fd_check(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [200, 4096])
+def test_flash_decode_lengths_zero_one_past_t_on_card(gen, T, dtype):
+    """lengths 0 (a zero row), 1, past T (all of it) and negative."""
+    q, k, v, lengths = _fd_inputs(gen, 5, 32, 8, 128, T, dtype,
+                                  [0, 1, T + 7, -3, T // 2])
+    out = _fd_check(q, k, v, lengths)
+    assert not bool(out[0].any()) and not bool(out[3].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["batch", "head"])
+def test_flash_decode_strided_q_on_card(gen, how, dtype):
+    """q as a view: every other batch row, or heads 2 D apart."""
+    B, H, K, D, T = 4, 32, 8, 128, 1024
+    _, k, v, lengths = _fd_inputs(gen, B, H, K, D, T, dtype)
+    if how == "batch":
+        q = torch.randn(B, 2, H, D, generator=gen, device="cuda") \
+            .to(dtype)[:, 1]
+    else:
+        q = torch.randn(B, H, 2 * D, generator=gen, device="cuda") \
+            .to(dtype)[..., D:]
+    assert not q.is_contiguous()
+    _fd_check(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["d36", "offset_base"])
+def test_flash_decode_narrow_path_on_card(gen, case, dtype):
+    """Inputs that cannot be read as 16-byte segments take the narrow path:
+    D = 36 (not a multiple of 8 bf16; a multiple of 4 f32, so f32 stays
+    wide), and K/V views one element into a wider row (base and strides
+    off 16 bytes)."""
+    B, H, K, T = 3, 16, 4, 700
+    if case == "d36":
+        q, k, v, lengths = _fd_inputs(gen, B, H, K, 36, T, dtype)
+        assert wide_path(k, v) == (dtype == torch.float32)
+    else:
+        D = 64
+        q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, T, K, D + 1, generator=gen, device="cuda")
+                .to(dtype)[..., 1:] for _ in range(2))
+        lengths = torch.randint(1, T + 1, (B,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        assert not wide_path(k, v)
+    _fd_check(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("B,H,K,D,T", [(4, 32, 8, 128, 1024),
+                                       (16, 32, 8, 128, 8192),
+                                       (16, 32, 32, 80, 256)])
+def test_flash_decode_runs_are_bit_identical_on_card(gen, B, H, K, D, T):
+    """No float atomics: the same inputs give the same bits, whichever
+    block of a sequence merges its pieces."""
+    args = _fd_inputs(gen, B, H, K, D, T, torch.bfloat16)
+    a = flash_decode(*args)
+    b = flash_decode(*args)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,K,D,T", [(4, 32, 8, 128, 1024),
+                                       (16, 32, 32, 80, 256)])
+def test_flash_decode_cuda_graph_replay_on_card(gen, B, H, K, D, T):
+    """The kernel allocates and synchronises nothing, and its tickets reset
+    themselves: a captured call replayed (twice, on new inputs copied in)
+    equals the eager call."""
+    args = _fd_inputs(gen, B, H, K, D, T, torch.bfloat16)
+    flash_decode(*args)                    # grows the workspace
     torch.cuda.synchronize()
-    assert flash_decode.launches == before + 1
-    torch.testing.assert_close(out.float(), flash_decode_ref(q, k, v,
-                                                             lengths),
-                               **TOL[dtype])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(*args)
+    for _ in range(2):
+        new = _fd_inputs(gen, B, H, K, D, T, torch.bfloat16)
+        for dst, src in zip(args, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_decode(*args))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -4,8 +4,12 @@ The same inputs, made with numpy from a seed, go through the JAX Pallas
 kernel in interpret mode, the JAX plain reference, and the port's CPU path
 (`ops.decode_attention` on CPU tensors, which takes the plain version).
 Tolerances are the JAX package's own (tests/kernels/test_kernels.py):
-atol 2e-5 in float32, 5e-2 in bfloat16, rtol 1e-2.
+atol 2e-5 in float32, 5e-2 in bfloat16, rtol 1e-2.  The CUDA kernel's
+`plan`, its rule for 16-byte loads and its piece/merge arithmetic
+(emulated in plain PyTorch) are held here too.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +17,8 @@ import torch
 
 from repro.kernels import flash_decode as jax_flash_decode
 from repro.kernels.ref import flash_decode_ref as jax_flash_decode_ref
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import flash_decode_int8 as FD8
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.ref import flash_decode_ref
@@ -146,3 +152,151 @@ def test_zero_length_sequence_gets_zero_output():
     torch.testing.assert_close(out[1:2], ops.decode_attention(
         q[1:2], k[1:2], v[1:2], lengths[1:2]))
     assert float(out[1].abs().max()) > 0
+
+
+# ---- the CUDA kernel's plan and its piece/merge arithmetic --------------
+# (held on the CPU; the kernel itself runs in tests/test_torch_cuda.py)
+
+MAIN = [(16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),   # (B, H, K, D, T)
+        (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024)]
+PLAN_CASES = [(B, K, T) for B in (1, 4, 16) for K in (1, 8, 32)
+              for T in (1, 63, 64, 65, 256, 1000, 1024, 8192, 65536)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 16])
+@pytest.mark.parametrize("B,K,T", PLAN_CASES)
+def test_plan_puts_every_row_in_exactly_one_piece(B, K, T, n_sm):
+    piece, n_split = FD.plan(B, K, T, n_sm)
+    assert piece % FD.MIN_PIECE == 0 and piece >= FD.MIN_PIECE
+    assert (n_split - 1) * piece < T <= n_split * piece
+    hits = torch.zeros(T, dtype=torch.int64)
+    for s in range(n_split):
+        hits[s * piece:(s + 1) * piece] += 1
+    assert bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("B,K,T", [(1, 1, 1), (65535, 1, 4096),
+                                   (1, 65535, 4096), (2, 8, 2 ** 24),
+                                   (4, 8, 65536), (65535, 8, 2 ** 20)])
+def test_plan_grid_stays_inside_cuda_limits(B, K, T):
+    """grid (K, B, n_split): x below 2^31, y and z below 2^16; at most
+    MAX_SPLIT pieces, whose weights the merging block keeps in shared
+    memory."""
+    piece, n_split = FD.plan(B, K, T, 132)
+    assert 1 <= n_split <= min(FD.MAX_SPLIT, 65535)
+    assert K < 2 ** 31 and B <= 65535
+    assert n_split * piece >= T
+
+
+@pytest.mark.parametrize("B,H,K,D,T", MAIN)
+def test_plan_gives_two_blocks_per_sm_at_the_serve_shapes(B, H, K, D, T):
+    piece, n_split = FD.plan(B, K, T, 132)
+    assert n_split * K * B >= 2 * 132
+
+
+def test_int8_kernel_keeps_its_256_row_pieces():
+    assert FD8.CHUNK == 256
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_path_rule(dtype):
+    """16-byte segments where D, bases and strides allow; else narrow."""
+    tdt = getattr(torch, dtype)
+    vec = 16 // torch.empty((), dtype=tdt).element_size()
+    k = torch.zeros(2, 9, 2, 64, dtype=tdt)
+    assert FD.wide_path(k, k)
+    odd = torch.zeros(2, 9, 2, vec + 4 if vec == 8 else 6, dtype=tdt)
+    assert not FD.wide_path(odd, odd)
+    shifted = torch.zeros(2, 9, 2, 65, dtype=tdt)[..., 1:]
+    assert shifted.stride(-1) == 1 and not FD.wide_path(shifted, shifted)
+
+
+def _lanes_per_row(segs):
+    lanes = 1
+    while lanes < segs and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def _online(states):
+    """(m, l, acc) states combined in order, online, base 2."""
+    m, l, acc = states[0]
+    for m_s, l_s, a_s in states[1:]:
+        m_new = torch.maximum(m, m_s)
+        c_old, c_new = torch.exp2(m - m_new), torch.exp2(m_s - m_new)
+        l = l * c_old + l_s * c_new
+        acc = acc * c_old[:, None] + a_s * c_new[:, None]
+        m = m_new
+    return m, l, acc
+
+
+def _piece_state(qg, k, v, c0, c1, R, warps):
+    """One block's piece: warps taking R-row tiles in turn, each an online
+    softmax with one max per tile; the warps' states combined in order."""
+    G, D = qg.shape
+    states = []
+    for w in range(warps):
+        m, l, acc = torch.full((G,), -1e30), torch.zeros(G), torch.zeros(G, D)
+        for t0 in range(c0 + w * R, c1, warps * R):
+            rows = slice(t0, min(t0 + R, c1))
+            m, l, acc = _tile(m, l, acc, qg @ k[rows].float().T,
+                              v[rows].float())
+        states.append((m, l, acc))
+    return _online(states)
+
+
+def _tile(m, l, acc, s, v):
+    """A tile's scores s (G, R) and rows v (R, D) into a warp's state."""
+    m_new = torch.maximum(m, s.max(-1).values)
+    p = torch.exp2(s - m_new[:, None])
+    corr = torch.exp2(m - m_new)
+    return m_new, l * corr + p.sum(-1), acc * corr[:, None] + p @ v
+
+
+def _emulate_kernel(q, k, v, lengths, n_sm, warps=4, row_steps=4):
+    """The kernel's arithmetic in plain PyTorch, f32: `plan`'s pieces, each
+    a block of `warps` warps (`_piece_state`); q scaled by
+    log2(e) / sqrt(D); a sequence of one piece written directly, else its
+    pieces merged online in piece order."""
+    B, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    vec = 16 // q.element_size()
+    R = row_steps * (32 // _lanes_per_row(-(-D // vec)))
+    piece, _ = FD.plan(B, K, T, n_sm)
+    out = torch.zeros(B, H, D)
+    scale = math.log2(math.e) / math.sqrt(D)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), T)
+        for kh in range(K):
+            heads = slice(kh * G, (kh + 1) * G)
+            parts = [_piece_state(q[b, heads].float() * scale, k[b, :, kh],
+                                  v[b, :, kh], c0, min(c0 + piece, n), R,
+                                  warps)
+                     for c0 in range(0, n, piece)]
+            if parts:
+                _, l, acc = _online(parts)
+                out[b, heads] = acc / l[:, None]
+    return out
+
+
+EDGES = [(B, H, K, D, T) for B, H, K, D in [(3, 8, 4, 64), (3, 4, 1, 32)]
+         for T in (63, 64, 65, 127, 128, 129)]
+
+
+@pytest.mark.parametrize("B,H,K,D,T", [s[:5] for s in SWEEP] + EDGES)
+def test_piece_and_merge_arithmetic_matches_plain(B, H, K, D, T):
+    """The kernel's pieces, warp tiles and merges, emulated in plain
+    PyTorch, against flash_decode_ref at the JAX sweep shapes and at T and
+    lengths one row around the first two piece ends (64-row pieces on a
+    132-SM card at these sizes); f32 at the JAX package's tolerance."""
+    q, k, v, lengths = _port(*_inputs(B, H, K, D, T, "float32", seed=T),
+                             "float32")
+    piece, n_split = FD.plan(B, K, T, 132)
+    if (B, H, K, D, T) in EDGES:
+        lengths = torch.tensor([T, piece + 1, piece - 1], dtype=torch.int32)
+    got = _emulate_kernel(q, k, v, lengths, 132)
+    torch.testing.assert_close(got, flash_decode_ref(q, k, v, lengths),
+                               atol=2e-5, rtol=1e-2)
+    if T > piece:
+        assert n_split > 1 and int(lengths.max()) > piece
