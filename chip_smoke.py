@@ -23,9 +23,12 @@ Phases, in order; any failure exits non-zero:
               the host's per-call work), with the piece size and block
               count `plan` chose.
               mamba_scan and wkv6 against their plain sequential versions
-              (y and final state) at the JAX sweep shapes and the
-              full-width prefill shapes at S = 37, 1000, 1015 (wkv6 also at
-              w in [0.05, 0.06]), at the limits of SCAN_TOL; a planted
+              (y and final state) at the JAX sweep shapes, the
+              full-width prefill shapes at S = 37, 1000, 1015, the edges
+              of the kernels' 16-row tiles and chunks (SCAN_EDGES) and a
+              batch of two, all at the serve width (wkv6 at every
+              W_RANGES, w in [0.05, 0.06] the strongest decay), at the
+              limits of SCAN_TOL; a planted
               fault made from calls of the unchanged kernel (mamba_scan
               run chunk by chunk: no inter-chunk term; wkv6 plus its
               diagonal term: a causal mask taking s <= t) must fail them.
@@ -77,10 +80,13 @@ Phases, in order; any failure exits non-zero:
               prefills, wkv6 = 24 x rwkv6's prefills, and no other kernel
               (flash_decode_int8 0);
               then each scan checked and timed at every prompt length the
-              serve phase prefilled;
+              serve phase prefilled, eager and as a CUDA-graph replay
+              (device_ms), with the launches and blocks of each call;
 then one JSON line of kernel numbers (times averaged over the serve
-paths' shapes, weighted by their launches at each, flash_decode's also as
-device_ms and library_device_ms; flash_decode_int8, which no serve path
+paths' shapes, weighted by their launches at each, flash_decode's and the
+scans' also as device_ms, flash_decode's library_device_ms; prefill walls
+in phase 6 are each the median of 3 after one warm-up prefill at the same
+length; flash_decode_int8, which no serve path
 launches, over the four MAIN shapes equally, its launches those of
 phase 4) and, last, the device line.
 
@@ -159,14 +165,20 @@ SERVE = dict(workload="azure-conv", requests=16, b_short=128,
 # their sums (chunked products vs one step per token).
 SCAN_TOL = {"mamba_scan": dict(atol=4e-4, rtol=5e-2),
             "wkv6": dict(atol=2e-3, rtol=1e-3)}
+# the edges of the scans' 16-row tiles and of their chunks (wkv6 64,
+# mamba_scan 128 tokens)
+SCAN_EDGES = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129)
 # (B, S, nh, hd, ds): the JAX sweep, then zamba2's full-width prefill at a
-# short prompt, ~1000 tokens and a length no multiple of the 128 chunk
+# short prompt, ~1000 tokens and a length no multiple of the 128 chunk,
+# then the edges and a batch of two at that width
 MAMBA_SHAPES = [(2, 64, 3, 32, 16), (1, 100, 2, 64, 64), (1, 16, 1, 8, 8),
                 (1, 37, 80, 64, 64), (1, 1000, 80, 64, 64),
-                (1, 1015, 80, 64, 64)]
+                (1, 1015, 80, 64, 64)] \
+    + [(1, S, 80, 64, 64) for S in SCAN_EDGES] + [(2, 300, 80, 64, 64)]
 # (B, S, H, hd), the same for rwkv6 (64-token chunks); each at every w range
 WKV_SHAPES = [(2, 64, 2, 32), (1, 100, 3, 64), (1, 7, 1, 8),
-              (1, 37, 32, 64), (1, 1000, 32, 64), (1, 1015, 32, 64)]
+              (1, 37, 32, 64), (1, 1000, 32, 64), (1, 1015, 32, 64)] \
+    + [(1, S, 32, 64) for S in SCAN_EDGES] + [(2, 300, 32, 64)]
 W_RANGES = [(0.05, 1.0), (0.8, 1.0), (0.05, 0.06)]
 SCAN_SERVE_SHAPE = {"mamba_scan": (1, 80, 64, 64), "wkv6": (1, 32, 64)}
 # zamba2 / rwkv6 prefill in float32, kernel vs plain scan: the scans
@@ -539,7 +551,8 @@ def scan_bound(kind, shape):
 
 def time_scan(kind, S, gen, serve_launches):
     """Check and time the kernel at a serve prompt length S (inputs cycled
-    through more than the L2), beside its plain version."""
+    through more than the L2), eager and as one CUDA-graph replay, beside
+    its plain version; with `plan`'s launches and blocks for the call."""
     head = SCAN_SERVE_SHAPE[kind]
     shape = head[:1] + (S,) + head[1:]
     fn, ref = SCANS[kind]
@@ -552,14 +565,20 @@ def time_scan(kind, S, gen, serve_launches):
     sets = [args] + [scan_inputs(kind, shape, gen)
                      for _ in range(n_sets(per_set) - 1)]
     ms = time_ms(fn, sets, 50)
+    device_ms = graph_ms(fn, sets)
     plain_ms = time_ms(ref, sets[:2], 2)
     b_ms, b_by = scan_bound(kind, shape)
+    plan = (MS if kind == "mamba_scan" else WK).plan(*shape)
     return dict(shape=dict(zip(("B", "S", "nh", "hd", "ds")
                                if kind == "mamba_scan"
                                else ("B", "S", "H", "hd"), shape)),
-                dtype="float32", ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                serve_launches=serve_launches, input_sets=len(sets))
+                dtype="float32", ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, bound_share=b_ms / device_ms,
+                max_abs_err=err, serve_launches=serve_launches,
+                launches_per_call=plan["launches"],
+                blocks={k: v for k, v in plan.items() if "blocks" in k},
+                input_sets=len(sets))
 
 
 # ---- phases -------------------------------------------------------------
@@ -798,15 +817,19 @@ def phase_ssm_model(name, cfg, params):
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     caches = {c.dtype: M.init_cache(c, len(PLENS), 1024, device=DEVICE)
               for c in (cfg, cfg32)}
-    rows16, rows32, prefill_ms = [], [], {}
+    rows16, rows32, prefill_ms, first_ms = [], [], {}, {}
     for slot, plen in enumerate(PLENS):
         prompt = torch.randint(0, cfg.vocab, (1, plen), generator=gen,
                                device=DEVICE)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a, pc = prefill(params, cfg, prompt)
-        torch.cuda.synchronize()
-        prefill_ms[plen] = 1e3 * (time.perf_counter() - t0)
+        walls = []
+        for _ in range(4):     # one warm-up at this length, then 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, pc = prefill(params, cfg, prompt)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        first_ms[plen] = walls[0]
+        prefill_ms[plen] = sorted(walls[1:])[1]
         if a.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(a).all()):
             raise SystemExit(f"prefill logits malformed: {tuple(a.shape)}")
         setattr(ops, op_name, checked)
@@ -855,7 +878,9 @@ def phase_ssm_model(name, cfg, params):
         f" {[f'{r:.3e}' for r in rel_fault]} (must exceed"
         f" {SCAN_LOGIT_BOUND} where it can show)")
     log(f"  bf16 prefill wall ms by length (kernel path, host clock to"
-        f" synchronize): {json.dumps(prefill_ms)}")
+        f" synchronize), median of 3 after one warm-up prefill at that"
+        f" length: {json.dumps(prefill_ms)}; the warm-up prefill itself:"
+        f" {json.dumps(first_ms)}")
     if max(rel) > SCAN_LOGIT_BOUND:
         raise SystemExit(f"full-width {name} prefill disagrees with its"
                          " plain twin")
@@ -1042,8 +1067,13 @@ def main() -> int:
                            for S in sorted(per)}
         scan_err_max[kind] = max(r["max_abs_err"]
                                  for r in scan_rows[kind].values())
-        for S in (min(per), max(per)):
-            log(f"  timing {json.dumps(scan_rows[kind][S])}")
+        for S in sorted(per):
+            r = scan_rows[kind][S]
+            log(f"  timing {kind} S={S}: device_ms {r['device_ms']:.5f}"
+                f" ms {r['ms']:.5f} bound_ms {r['bound_ms']:.5f}"
+                f" ({r['bound_by']}) plain_ms {r['plain_ms']:.3f}"
+                f" launches/call {r['launches_per_call']} blocks"
+                f" {r['blocks']} serve launches {r['serve_launches']}")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
@@ -1072,13 +1102,16 @@ def main() -> int:
              mean_over="the four MAIN shapes, equally weighted",
              by_shape=list(int8_rows.values()))]
     for kind, line in (("mamba_scan", 57), ("wkv6", 64)):
+        rows, per = scan_rows[kind], scan_launches[kind]
+        mean = weighted(rows, per)
+        mean["device_ms"] = sum(n * rows[S]["device_ms"]
+                                for S, n in per.items()) / sum(per.values())
         kernels.append(dict(
             name=kind, route="cuda", source=f"src/repro_torch/csrc/{kind}.cu",
             replaces=f"src/repro/kernels/{kind}.py:{line}",
             launches=launches[kind], max_abs_err=scan_err_max[kind],
-            **weighted(scan_rows[kind], scan_launches[kind]),
-            library_ms=None, dtype="float32",
-            by_shape=list(scan_rows[kind].values())))
+            **mean, library_ms=None, dtype="float32",
+            by_shape=list(rows.values())))
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,11 @@ flash_decode_int8 at the JAX int8 sweep shapes and the same serve shapes,
 on codes and scales from `quantize_kv` (which is also held bit-equal to
 its CPU result); mamba_scan
 and wkv6 at the JAX sweep shapes and the full-width prefill shapes
-(zamba2: nh 80, hd = ds = 64; rwkv6: H 32, hd 64), y and final state.
+(zamba2: nh 80, hd = ds = 64; rwkv6: H 32, hd 64), y and final state, at
+the edges of their 16-row tiles and chunks and every served prompt length
+(wkv6 also under strong decay, w in [0.05, 0.06]), at B = 2, on strided
+and narrow operands; two runs bit-identical, and a CUDA-graph replay
+equal to the eager call.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
 an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
@@ -292,3 +296,111 @@ def test_wkv6_matches_plain_on_card(gen, B, S, H, hd, wmin, wmax):
     yr, sr = wkv6_ref(r, k, v, w, u)
     torch.testing.assert_close(y, yr, **WKV_TOL)
     torch.testing.assert_close(st, sr, **WKV_TOL)
+
+
+# The scans at their new edges: 16-row tiles and sub-chunks, the 64-token
+# wkv6 chunk and the 128-token mamba chunk, and every prompt length the
+# serve path prefills (launch/serve.py demo_requests: azure-conv, 16
+# requests, window_long 1024), at the serve widths.
+SCAN_EDGES = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129]
+SERVED = [4, 7, 15, 21, 28, 29, 42, 47, 50, 77, 89, 94, 140, 454, 579, 1015]
+
+
+def _mamba_inputs(gen, B, S, nh, hd, ds):
+    xt = torch.randn(B, S, nh, hd, generator=gen, device="cuda")
+    Bm = torch.randn(B, S, ds, generator=gen, device="cuda")
+    Cm = torch.randn(B, S, ds, generator=gen, device="cuda")
+    lA = -0.5 * torch.rand(B, S, nh, generator=gen, device="cuda")
+    return xt, Bm, Cm, lA
+
+
+def _wkv_inputs(gen, B, S, H, hd, wmin=0.05, wmax=1.0):
+    r, k, v = (torch.randn(B, S, H, hd, generator=gen, device="cuda")
+               for _ in range(3))
+    w = wmin + (wmax - wmin) * torch.rand(B, S, H, hd, generator=gen,
+                                          device="cuda")
+    u = 0.5 * torch.randn(H, hd, generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def _scan_check(fn, ref, args, tol):
+    before = fn.launches
+    y, st = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    yr, sr = ref(*args)
+    torch.testing.assert_close(y, yr, **tol)
+    torch.testing.assert_close(st, sr, **tol)
+    return y, st
+
+
+@pytest.mark.parametrize("B,S", [(1, S) for S in sorted(set(SCAN_EDGES
+                                                           + SERVED))]
+                         + [(2, 300), (2, 17)])
+def test_mamba_scan_tile_edges_and_served_lengths_on_card(gen, B, S):
+    _scan_check(mamba_scan, mamba_scan_ref,
+                _mamba_inputs(gen, B, S, 80, 64, 64), MAMBA_TOL)
+
+
+@pytest.mark.parametrize("wmin,wmax", [(0.05, 1.0), (0.05, 0.06)])
+@pytest.mark.parametrize("B,S", [(1, S) for S in sorted(set(SCAN_EDGES
+                                                           + SERVED))]
+                         + [(2, 300), (2, 17)])
+def test_wkv6_tile_edges_and_served_lengths_on_card(gen, B, S, wmin, wmax):
+    _scan_check(wkv6, wkv6_ref, _wkv_inputs(gen, B, S, 32, 64, wmin, wmax),
+                WKV_TOL)
+
+
+@pytest.mark.parametrize("case", ["model_views", "offset_base", "hd30"])
+def test_mamba_scan_strided_and_narrow_operands_on_card(gen, case):
+    """Bm and Cm as the model gives them (views of one projection: the
+    16-byte path), and operands the kernel must read element by element:
+    a base off a 16-byte boundary, hd and ds not multiples of 4."""
+    B, S, nh, hd, ds = 2, 200, 6, 64, 64
+    if case == "hd30":
+        hd, ds = 30, 18
+    xt, _, _, lA = _mamba_inputs(gen, B, S, nh, hd, ds)
+    off = 8 if case == "model_views" else 7
+    proj = torch.randn(B, S, 8 + 2 * ds, generator=gen, device="cuda")
+    Bm, Cm = proj[..., off:off + ds], proj[..., off + ds:off + 2 * ds]
+    _scan_check(mamba_scan, mamba_scan_ref, (xt, Bm, Cm, lA), MAMBA_TOL)
+
+
+@pytest.mark.parametrize("case", ["offset_base", "hd30"])
+def test_wkv6_narrow_operands_on_card(gen, case):
+    """Contiguous operands the kernel must read element by element: a base
+    off a 16-byte boundary, or hd not a multiple of 4."""
+    B, S, H, hd = 2, 150, 3, 30 if case == "hd30" else 64
+    args = list(_wkv_inputs(gen, B, S, H, hd))
+    if case == "offset_base":
+        n = B * S * H * hd
+        for j in range(4):
+            buf = torch.empty(n + 1, device="cuda")
+            buf[1:].copy_(args[j].reshape(-1))
+            args[j] = buf[1:].view(B, S, H, hd)
+    _scan_check(wkv6, wkv6_ref, tuple(args), WKV_TOL)
+
+
+@pytest.mark.parametrize("S", [50, 1015])
+def test_scans_bit_identical_and_graph_replay_on_card(gen, S):
+    """No float atomics: two runs give the same bits; and a captured call
+    replayed on new inputs copied in equals the eager call (the workspace
+    is grown by the eager call before the capture)."""
+    for fn, args in ((mamba_scan, _mamba_inputs(gen, 1, S, 80, 64, 64)),
+                     (wkv6, _wkv_inputs(gen, 1, S, 32, 64))):
+        a = fn(*args)
+        b = fn(*args)
+        assert all(torch.equal(x, z) for x, z in zip(a, b))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*args)
+        new = (_mamba_inputs(gen, 1, S, 80, 64, 64) if fn is mamba_scan
+               else _wkv_inputs(gen, 1, S, 32, 64))
+        for dst, src in zip(args, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = fn(*args)
+        assert all(torch.equal(x, z) for x, z in zip(out, eager))
