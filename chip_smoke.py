@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi);
   2. build    the four CUDA kernels of src/repro_torch/csrc (flash_decode,
               flash_decode_int8, mamba_scan, wkv6), one nvcc each, all
-              started together;
+              started together; ptxas' registers and spills of every
+              kernel instance;
   3. kernel   flash_decode against its plain PyTorch version at the JAX
               package's sweep shapes, the serve path's four shapes
               (llama31-8b G=4 D=128 and zamba2 G=1 D=80, each in a short
@@ -43,8 +44,10 @@ Phases, in order; any failure exits non-zero:
               swapped) must fail the bfloat16 limit; at the JAX shapes the
               kernel stays within INT8_FLOAT_REL of max|ref| of float
               attention on the unquantized K/V (the JAX test's criterion);
-              times at every shape beside the bound and the plain version,
-              and, on the same K/V in bf16, flash_decode's and SDPA's;
+              times at every shape, eager and as a CUDA-graph replay
+              (device_ms), beside the bound, the plain version, the piece
+              size and block count, and, on the same K/V in bf16,
+              flash_decode's and SDPA's (eager and device_ms);
   4. model    llama31-8b at full width and depth (bf16, seeded random
               weights): ragged prompts prefilled, one decode step through
               the kernel and one through the plain attention on the same
@@ -87,8 +90,9 @@ paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
 in phase 6 are each the median of 3 after one warm-up prefill at the same
 length; flash_decode_int8, which no serve path
-launches, over the four MAIN shapes equally, its launches those of
-phase 4) and, last, the device line.
+launches, over the four MAIN shapes equally, with its device_ms and the
+share of its bound, its launches those of phase 4) and, last, the device
+line.
 
 Needs one CUDA card; exits non-zero without one.  float32 matmuls stay full
 precision: TF32 is turned off for matmuls and cuDNN.
@@ -434,8 +438,10 @@ def control_int8(shape, gen):
 def time_int8(shape, gen):
     """The int8 kernel, its plain version and its bound at `shape`; beside
     them, on the same K/V in bf16 (the cache quantize_kv was given),
-    flash_decode and SDPA: the int8 form's yardstick on bytes.  Input sets
-    cycle past 3x the L2 for the int8 bytes (twice that for the bf16)."""
+    flash_decode and SDPA: the int8 form's yardstick on bytes.  Each
+    eager and as one CUDA-graph replay (device_ms), with the piece size and
+    block count the int8 kernel's `plan` chose.  Input sets cycle past 3x
+    the L2 for the int8 bytes (twice that for the bf16)."""
     dtype = torch.bfloat16
     first = int8_inputs(shape, dtype, gen)
     per_set = sum(t.numel() * t.element_size() for t in first[1][1:5])
@@ -449,15 +455,28 @@ def time_int8(shape, gen):
     T = shape[4]
     masks = [(torch.arange(T, device=DEVICE)[None] < s[3][:, None])
              [:, None, None, :] for s in f16_sets]
+    lib_sets = [(i,) for i in range(len(f16_sets))]
+
+    def lib(i):
+        return sdpa(*f16_sets[i][:3], masks[i])
+
     ms = time_ms(flash_decode_int8, i8_sets, 50)
+    device_ms = graph_ms(flash_decode_int8, i8_sets)
     plain_ms = time_ms(flash_decode_int8_ref, i8_sets, 10)
     bf16_ms = time_ms(flash_decode, f16_sets, 50)
-    sdpa_ms = time_ms(lambda i: sdpa(*f16_sets[i][:3], masks[i]),
-                      [(i,) for i in range(len(f16_sets))], 50)
+    bf16_device_ms = graph_ms(flash_decode, f16_sets)
+    sdpa_ms = time_ms(lib, lib_sets, 50)
+    sdpa_device_ms = graph_ms(lib, lib_sets)
     b_ms, b_by = int8_bound(first[1][0], first[1][1], lengths)
+    B, _, K, _, T = shape
+    piece, n_split = FD8.plan(B, K, T, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     row = dict(shape=dict(zip("BHKDT", shape)), dtype="bfloat16",
-               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               flash_decode_bf16_ms=bf16_ms, sdpa_bf16_ms=sdpa_ms,
+               ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bound_share=b_ms / device_ms, piece=piece,
+               blocks=n_split * K * B, flash_decode_bf16_ms=bf16_ms,
+               flash_decode_bf16_device_ms=bf16_device_ms,
+               sdpa_bf16_ms=sdpa_ms, sdpa_bf16_device_ms=sdpa_device_ms,
                input_sets=len(pairs))
     log(f"  timing {json.dumps(row)}")
     return row
@@ -601,7 +620,12 @@ def phase_build():
     for path, build_log in built:
         log(f"  {path.name}")
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:
+                # the instance: a kernel template's arguments, or its name
+                name = line.split("'")[1]
+                at = name.find("kernelI")
+                log(f"    ptxas: {name[at + 7:] if at >= 0 else name}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"    ptxas: {line.strip()}")
 
 
@@ -1084,6 +1108,10 @@ def main() -> int:
         fd_mean[key] = sum(n * fd_rows[s][key]
                            for s, n in fd_launches.items()) \
             / sum(fd_launches.values())
+    int8_mean = weighted(int8_rows, {s: 1 for s in MAIN})
+    int8_mean["device_ms"] = sum(int8_rows[s]["device_ms"]
+                                 for s in MAIN) / len(MAIN)
+    int8_mean["bound_share"] = int8_mean["bound_ms"] / int8_mean["device_ms"]
     kernels = [dict(
         name="flash_decode", route="cuda",
         source="src/repro_torch/csrc/flash_decode.cu",
@@ -1094,8 +1122,7 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_decode_int8.cu",
              replaces="src/repro/kernels/flash_decode_int8.py:73",
              launches=int8_launches, max_abs_err=int8_max_err,
-             **weighted(int8_rows, {s: 1 for s in MAIN}),
-             library_ms=None, dtype="bfloat16",
+             **int8_mean, library_ms=None, dtype="bfloat16",
              library_note="no one PyTorch call computes attention over an"
                           " int8 cache with per-row scales; flash_decode and"
                           " SDPA on the bf16 cache are in by_shape",

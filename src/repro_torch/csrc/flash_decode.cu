@@ -48,7 +48,8 @@
 //     f32 scratch and takes a ticket; the last block of the (sequence, kv
 //     head) to finish merges the pieces in piece order, its loads batched
 //     (MERGE_ITEMS outputs x MERGE_UNROLL pieces a thread), and resets the
-//     ticket to 0.  No float atomics: two runs give the same bits;
+//     ticket to 0 (decode_common.cuh finish_piece, shared with
+//     flash_decode_int8.cu).  No float atomics: two runs give the same bits;
 //   * a narrow path: where K or V cannot be read as 16-byte segments
 //     (D % VEC != 0, a base off 16 bytes or a stride off VEC elements; the
 //     wrapper's `wide_path` is the rule, checked here again), each lane
@@ -71,8 +72,6 @@ constexpr int RS = 4;              // row steps per tile (RS * RPI rows)
 constexpr int MAX_D = 256;         // head_dim limit
 constexpr int MAX_G = 16;          // query heads per kv head
 constexpr int MAX_SPLIT = 256;     // pieces per sequence (kernels MAX_SPLIT)
-constexpr int MERGE_ITEMS = 4;     // outputs a thread merges at once
-constexpr int MERGE_UNROLL = 8;    // pieces of each it loads at once
 constexpr int NARROW_NSEG = MAX_D / 32;
 
 struct Params {
@@ -87,37 +86,6 @@ struct Params {
   int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;        // log2(e) / sqrt(D)
 };
-
-// Lanes that read one row of `segs` segments: the next power of two, at
-// most 32 (a lane then takes segments lane, lane + 32, ...).
-__host__ __device__ __forceinline__ int lanes_per_row(int segs) {
-  int l = 1;
-  while (l < segs && l < 32) l <<= 1;
-  return l;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(d), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x by the SFU's ex2.approx (relative error ~2^-22; subnormal results
-// flush to 0, which is what -inf rows want): the row loop's exponentials
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // VEC elements of a segment in shared memory, widened to f32
 template <int VEC>
@@ -167,7 +135,6 @@ flash_decode_kernel(const Params p) {
   constexpr int EPL = NSEG * VEC;             // elements a lane holds a row
   constexpr int RING = 2 * RS * NSEG * 32 * VEC;  // elements a stage holds
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int last_block;
 
   const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int G = p.group, D = p.head_dim, H = p.n_heads;
@@ -223,8 +190,8 @@ flash_decode_kernel(const Params p) {
         const T* sv = vb + r * p.v_st + seg_off[j];
         const bool on = ok && seg_in[j];
         if constexpr (WIDE) {
-          cp_async16(dk, sk, on);
-          cp_async16(dv, sv, on);
+          cp_async<16>(dk, sk, on);
+          cp_async<16>(dv, sv, on);
         } else {
           *dk = on ? *sk : T(0.f);
           *dv = on ? *sv : T(0.f);
@@ -383,111 +350,11 @@ flash_decode_kernel(const Params p) {
   }
   __syncthreads();
 
-  // the warps' states combined in warp order; one piece: out directly
-  const int64_t hs0 = (static_cast<int64_t>(b) * H
-                       + static_cast<int64_t>(kh) * G) * p.n_split;
-  const int64_t bhs = static_cast<int64_t>(gridDim.y) * H * p.n_split;
-  float* m_part = p.part;
-  float* l_part = m_part + bhs;
-  float* acc_part = l_part + bhs;
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D, d = i - g * D;
-    float M = NEG_INF;
-    for (int w = 0; w < N_WARPS; ++w) {
-      const float* wsw =
-          reinterpret_cast<const float*>(smem + w * p.warp_bytes);
-      M = fmaxf(M, wsw[G * D + g]);
-    }
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < N_WARPS; ++w) {
-      const float* wsw =
-          reinterpret_cast<const float*>(smem + w * p.warp_bytes);
-      const float c = exp2f(wsw[G * D + g] - M);
-      L += wsw[G * D + G + g] * c;
-      A += wsw[g * D + d] * c;
-    }
-    if (pieces == 1) {
-      store(out + i, A / L);
-    } else {
-      const int64_t hs = hs0 + static_cast<int64_t>(g) * p.n_split + split;
-      acc_part[hs * D + d] = A;
-      if (d == 0) {
-        m_part[hs] = M;
-        l_part[hs] = L;
-      }
-    }
-  }
-  if (pieces == 1) return;
-
-  // the last block of this (sequence, kv head) to finish merges the pieces
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    int32_t* ticket = p.tickets + static_cast<int64_t>(b) * p.n_kv + kh;
-    const int done = atomicAdd(ticket, 1);
-    last_block = done == pieces - 1;
-    if (last_block) *ticket = 0;  // ready for the next launch
-  }
-  __syncthreads();
-  if (!last_block) return;
-  __threadfence();
-  // the weights w[g][s] = 2^(m_s - M_g), M_g = max_s m_s, and 1 / L_g,
-  // L_g = sum_s l_s w[g][s]: a warp per head, its lanes over the pieces
-  float* wgt = reinterpret_cast<float*>(smem);
-  float* inv = wgt + G * pieces;
-  for (int g = warp; g < G; g += N_WARPS) {
-    const int64_t h = hs0 + static_cast<int64_t>(g) * p.n_split;
-    float ms[MAX_SPLIT / 32], ls[MAX_SPLIT / 32];
-    float M = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < MAX_SPLIT / 32; ++j) {
-      const int s = lane + 32 * j;
-      ms[j] = s < pieces ? __ldcg(m_part + h + s) : NEG_INF;
-      ls[j] = s < pieces ? __ldcg(l_part + h + s) : 0.f;
-      M = fmaxf(M, ms[j]);
-    }
-    M = warp_max(M);
-    float L = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_SPLIT / 32; ++j) {
-      const int s = lane + 32 * j;
-      const float w = exp2f(ms[j] - M);
-      if (s < pieces) wgt[g * pieces + s] = w;
-      L += ls[j] * w;
-    }
-    L = warp_sum(L);
-    if (lane == 0) inv[g] = 1.f / L;
-  }
-  __syncthreads();
-  // out = sum_s w[g][s] acc_s / L_g in piece order; a thread takes
-  // MERGE_ITEMS outputs and loads MERGE_UNROLL pieces of each at once
-  for (int i0 = tid; i0 < G * D; i0 += MERGE_ITEMS * THREADS) {
-    float o[MERGE_ITEMS] = {};
-    for (int s0 = 0; s0 < pieces; s0 += MERGE_UNROLL) {
-      float a[MERGE_ITEMS][MERGE_UNROLL];
-#pragma unroll
-      for (int j = 0; j < MERGE_ITEMS; ++j) {
-        const int i = min(i0 + j * THREADS, G * D - 1);
-        const int g = i / D, d = i - g * D;
-        const int64_t h = hs0 + static_cast<int64_t>(g) * p.n_split;
-#pragma unroll
-        for (int u = 0; u < MERGE_UNROLL; ++u)
-          a[j][u] = __ldcg(acc_part + (h + min(s0 + u, pieces - 1)) * D + d);
-      }
-#pragma unroll
-      for (int j = 0; j < MERGE_ITEMS; ++j) {
-        const int g = min(i0 + j * THREADS, G * D - 1) / D;
-#pragma unroll
-        for (int u = 0; u < MERGE_UNROLL; ++u)
-          if (s0 + u < pieces) o[j] += a[j][u] * wgt[g * pieces + s0 + u];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MERGE_ITEMS; ++j) {
-      const int i = i0 + j * THREADS;
-      if (i < G * D) store(out + i, o[j] * inv[i / D]);
-    }
-  }
+  // the warps' states combined in warp order; one piece: out directly,
+  // else the ticketed merge in piece order
+  finish_piece<THREADS, MAX_SPLIT>(smem, p.warp_bytes, out, p.part,
+                                   p.tickets, gridDim.y, H, p.n_kv, G, D, b,
+                                   kh, split, pieces, p.n_split);
 }
 
 template <typename T, int GB, bool WIDE, int NSEG>

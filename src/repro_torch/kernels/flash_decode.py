@@ -53,20 +53,22 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(B: int, K: int, T: int, n_sm: int) -> tuple[int, int]:
+def plan(B: int, K: int, T: int, n_sm: int,
+         max_piece: int = MAX_PIECE) -> tuple[int, int]:
     """Rows per piece and pieces per sequence, (piece, n_split).
 
     The fewest pieces that give the grid (K, B, n_split) at least
     MIN_BLOCKS_PER_SM blocks per SM (every piece past the first of a
     sequence costs a merge), each a multiple of MIN_PIECE rows, at most
-    MAX_PIECE rows (longer pieces leave a longer tail of blocks) and no
+    `max_piece` rows (longer pieces leave a longer tail of blocks; the int8
+    kernel, whose rows are half the bytes, takes its own limit) and no
     more than MAX_SPLIT pieces (the merging block keeps a weight per piece
     in shared memory).  Piece s holds rows [s * piece, (s+1) * piece)
     below T.
     """
     want = max(1, _cdiv(MIN_BLOCKS_PER_SM * n_sm, B * K))
     piece = T // want // MIN_PIECE * MIN_PIECE   # at least `want` pieces
-    piece = min(max(piece, MIN_PIECE), MAX_PIECE)
+    piece = min(max(piece, MIN_PIECE), max_piece)
     piece = max(piece, _cdiv(_cdiv(T, MAX_SPLIT), MIN_PIECE) * MIN_PIECE)
     return piece, _cdiv(T, piece)
 

@@ -10,11 +10,14 @@ per token and kv head, against 4 D).  The kernel is built on first use by
 `kernels.build` (nvcc for sm_90a, a plain C interface loaded with ctypes).
 
 `quantize_kv` is plain tensor code on any device, as the reference's is jnp
-outside its kernel.  `flash_decode_int8` only checks and launches: on a CUDA
-tensor it launches the kernel or raises, and it raises on any other device.
-Which version runs is decided in `ops.decode_attention_int8`.
-`flash_decode_int8.launches` counts kernel launches, so a run can show that
-its path went through the kernel.
+outside its kernel.  `flash_decode_int8` only checks, plans and launches:
+on a CUDA tensor it launches the kernel or raises, and it raises on any
+other device.  Which version runs is decided in
+`ops.decode_attention_int8`.  T is cut into pieces by `flash_decode.plan`
+with MAX_PIECE rows at most, and the partial softmax states of
+multi-piece sequences go to `flash_decode`'s per-device workspace, so a
+call allocates only its output.  `flash_decode_int8.launches` counts
+kernel launches, so a run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
@@ -24,12 +27,17 @@ from pathlib import Path
 import torch
 
 from . import build as _build
+from . import flash_decode as _fd
 from .flash_decode import _DTYPE_CODE
 
 SOURCE = "flash_decode_int8.cu"
-CHUNK = 256       # KV rows per block; T is split into ceil(T / CHUNK) pieces
 MAX_G = 16        # query heads per kv head (csrc MAX_G)
 MAX_D = 256       # head_dim (csrc MAX_D), a multiple of 16
+# rows a piece at most: an int8 row is half a bf16 row's bytes, and at the
+# long shapes (16 x 8192, 4 x 65536) fewer pieces leave fewer merges and a
+# shorter last wave of blocks; 1536 read fastest over random lengths there
+# among 512-1536 on an H100 (the serve shapes are cut finer anyway)
+MAX_PIECE = 1536
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor):
@@ -60,8 +68,8 @@ def build() -> tuple[Path, str]:
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.flash_decode_int8_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
 
 
@@ -106,6 +114,12 @@ def check_inputs(q, kq, vq, ks, vs, lengths) -> None:
                          " boundary, and contiguous lengths")
 
 
+def plan(B: int, K: int, T: int, n_sm: int) -> tuple[int, int]:
+    """Rows per piece and pieces per sequence, (piece, n_split):
+    `flash_decode.plan` with pieces of at most MAX_PIECE rows."""
+    return _fd.plan(B, K, T, n_sm, max_piece=MAX_PIECE)
+
+
 def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                       ks: torch.Tensor, vs: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
@@ -116,33 +130,32 @@ def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
     codes times scale, over t < lengths[b]; lengths above T count as T, and
     a sequence with lengths[b] <= 0 gets a zero output (the Pallas kernel
     averages V over all T rows there; the model never asks).  CUDA tensors
-    only.
+    only.  Calls on one device share `flash_decode`'s workspace, so they
+    must not overlap on two streams.
     """
     check_inputs(q, kq, vq, ks, vs, lengths)
-    if q.device.type != "cuda":
+    dev = q.device
+    if dev.type != "cuda":
         raise ValueError(f"flash_decode_int8 launches a CUDA kernel; got"
-                         f" tensors on {q.device}")
+                         f" tensors on {dev}")
     lib = _build.load(SOURCE, _configure)
     B, H, D = q.shape
     T, K = kq.shape[1], kq.shape[2]
-    n_split = -(-T // CHUNK)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    # per-piece softmax state (m, l, unnormalised acc) the merge pass reads
-    m_part = torch.empty((B, H, n_split), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, H, n_split, D), dtype=torch.float32,
-                           device=q.device)
+    piece, n_split = plan(B, K, T, _fd._sm_count(dev))
+    part = tickets = 0
+    if n_split > 1:
+        ws = _fd._scratch(dev, B * H * n_split * (D + 2), B * K)
+        part, tickets = ws[0].data_ptr(), ws[1].data_ptr()
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     strides = (ctypes.c_int64 * 14)(
         *q.stride()[:2], *kq.stride()[:3], *vq.stride()[:3], *ks.stride(),
         *vs.stride())
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         err = lib.flash_decode_int8_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(),
             vq.data_ptr(), ks.data_ptr(), vs.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            acc_part.data_ptr(), B, T, H, K, D, n_split, strides,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), part, tickets, B, T, H, K, D, piece, n_split,
+            strides, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode_int8 launch failed (code {err})")
     flash_decode_int8.launches += 1

@@ -17,9 +17,11 @@ admission and its K/V is spliced into the slab.  Energy/time accounting
 supports two policies: immediate (the whole prompt charged at admission)
 and chunked interleave (`prefill_chunk` tokens ride along each decode
 iteration, the Sarathi-style schedule; the request holds its slot but emits
-no tokens until its prefill budget drains).  Chunked interleave is refused
-for models with recurrent blocks: the decode pass would step the O(1)
-state of slots still waiting on their prefill (ROADMAP C8).
+no tokens until its prefill budget drains).  The decode pass runs over
+every slot; the O(1) state of recurrent blocks (Mamba2, RWKV6) in slots
+still waiting on their chunked prefill is kept as the prefill left it, so
+their streams equal those of immediate prefill (the reference steps that
+state: ROADMAP C8).
 
 All post-decode bookkeeping is slot-batched over numpy arrays; Python
 loops only touch the slots that complete on a given iteration.
@@ -64,11 +66,6 @@ class PoolEngine:
     def __init__(self, cfg, params, *, window: int, profile: BaseProfile,
                  n_slots: Optional[int] = None, name: str = "pool",
                  prefill_chunk: Optional[int] = None):
-        if prefill_chunk and any(b.kind in RECURRENT for b in cfg.unit):
-            raise NotImplementedError(
-                f"prefill_chunk with {cfg.name}'s recurrent blocks: the"
-                " decode pass would advance the state of slots still"
-                " waiting on their prefill (ROADMAP C8)")
         self.cfg, self.params = cfg, params
         self.window = window
         self.name = name
@@ -92,6 +89,10 @@ class PoolEngine:
         self._streamed_params = cfg.analytical_spec().streamed_params
         self.device = params["embed"].device
         self.cache = M.init_cache(cfg, n, window, device=self.device)
+        # the O(1) state a decode pass must not advance for waiting slots
+        self._state = [t for i, b in enumerate(cfg.unit)
+                       if b.kind in RECURRENT
+                       for t in self.cache[f"b{i}_{b.kind}"].values()]
         # exact token streams are kept per slot; grown on demand in _admit
         self._gen_buf = np.zeros((n, 64), np.int64)
         # decode iterations run and their wall time on the host clock
@@ -175,11 +176,21 @@ class PoolEngine:
 
     # --- one continuous-batching iteration ------------------------------
     def _next_tokens(self) -> np.ndarray:
-        """(n_slots,) greedy next token per slot."""
+        """(n_slots,) greedy next token per slot.  The recurrent state of
+        slots still waiting on their chunked prefill comes out as it went
+        in (their attention K/V row at `pos` is written, and overwritten by
+        their first real decode step)."""
         t0 = time.perf_counter()
         toks = torch.as_tensor(self.tokens[:, None], device=self.device)
+        waiting = np.flatnonzero(self._active & (self.prefill_left > 0))
+        kept = []
+        if self._state and waiting.size:
+            rows = torch.as_tensor(waiting, device=self.device)
+            kept = [(t, t[:, rows].clone()) for t in self._state]
         logits, self.cache = M.decode_step(self.params, self.cfg, toks,
                                            self.cache, self.pos)
+        for t, old in kept:
+            t[:, rows] = old
         nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
         self.decode_wall_s += time.perf_counter() - t0
         self.decode_steps += 1

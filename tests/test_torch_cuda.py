@@ -5,9 +5,13 @@ G = 4, D = 128; zamba2's shared attention: G = 1, D = 80), at D from 8 to
 256, at T and lengths on the edges of its pieces, on its narrow path, with
 a strided q; two runs bit-identical, and a CUDA-graph replay equal to the
 eager call;
-flash_decode_int8 at the JAX int8 sweep shapes and the same serve shapes,
+flash_decode_int8 at the JAX int8 sweep shapes, the same serve shapes,
+multi-piece shapes up to 4 x 65536 and a ragged T, and at G = 2, 8, 16,
 on codes and scales from `quantize_kv` (which is also held bit-equal to
-its CPU result); mamba_scan
+its CPU result); two runs bit-identical, the tickets left at 0, and a
+CUDA-graph replay equal to the eager call; bf16 flash_decode bit-identical
+to another checkout's kernel (REPRO_PARENT_CHECKOUT; skips without it);
+mamba_scan
 and wkv6 at the JAX sweep shapes and the full-width prefill shapes
 (zamba2: nh 80, hd = ds = 64; rwkv6: H 32, hd 64), y and final state, at
 the edges of their 16-row tiles and chunks and every served prompt length
@@ -16,12 +20,21 @@ and narrow operands; two runs bit-identical, and a CUDA-graph replay
 equal to the eager call.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
-an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`.
+an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
+(with `REPRO_PARENT_CHECKOUT=<root of the parent's checkout>` for the
+parent comparison).
 This file imports no jax, so it runs where only PyTorch is installed.
 """
+import ctypes
+import os
+import subprocess
+from pathlib import Path
+
 import pytest
 import torch
 
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.flash_decode import flash_decode, plan, wide_path
 from repro_torch.kernels.flash_decode_int8 import (flash_decode_int8,
                                                    quantize_kv)
@@ -212,11 +225,19 @@ def _int8_inputs(gen, B, H, K, D, T, dtype):
     return (q, *quantize_kv(k, v), lengths)
 
 
+INT8_MULTI_PIECE = [(16, 32, 8, 128, 8192), (4, 32, 8, 128, 65536),
+                    (3, 32, 8, 128, 3001)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,K,D,T", [
     (2, 8, 4, 64, 100), (1, 4, 2, 128, 300), (3, 2, 2, 32, 50),
     (16, 32, 8, 128, 256), (4, 32, 8, 128, 1024), (16, 32, 8, 128, 1000),
     (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024), (2, 32, 2, 16, 77),
+    # multi-piece (ragged T too), and G = 2, 8, 16 (the other lane layouts;
+    # G = 16 at D = 256 takes two segments a lane)
+    *INT8_MULTI_PIECE, (2, 8, 4, 48, 700), (2, 16, 2, 128, 3000),
+    (2, 32, 2, 64, 1500), (2, 32, 2, 256, 700),
 ])
 def test_flash_decode_int8_matches_plain_on_card(gen, B, H, K, D, T, dtype):
     """Kernel and plain version compute in f32 from the same codes and
@@ -248,6 +269,70 @@ def test_flash_decode_int8_masked_codes_and_zero_length_on_card(gen):
     b = flash_decode_int8(q, kq.masked_fill(past, 99),
                           vq.masked_fill(past, -99), ks, vs, lengths)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,K,D,T", INT8_MULTI_PIECE
+                         + [(16, 32, 8, 128, 256), (16, 32, 32, 80, 256)])
+def test_flash_decode_int8_bits_tickets_and_graph_replay_on_card(
+        gen, B, H, K, D, T):
+    """No float atomics: two runs give the same bits; every launch leaves
+    the workspace's tickets at 0; a captured call replayed (twice, on new
+    inputs copied in) equals the eager call bit for bit."""
+    args = _int8_inputs(gen, B, H, K, D, T, torch.bfloat16)
+    a = flash_decode_int8(*args)
+    b = flash_decode_int8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    tickets = FD._workspace.get(0)
+    assert tickets is None or not bool(tickets[1].any())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode_int8(*args)
+    for _ in range(2):
+        new = _int8_inputs(gen, B, H, K, D, T, torch.bfloat16)
+        for dst, src in zip(args, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_decode_int8(*args))
+    assert tickets is None or not bool(FD._workspace[0][1].any())
+
+
+def _parent_flash_decode_lib():
+    """The bf16 kernel of another checkout (its root in the environment
+    variable REPRO_PARENT_CHECKOUT), built with this checkout's flags."""
+    root = os.environ.get("REPRO_PARENT_CHECKOUT")
+    if not root:
+        pytest.skip("set REPRO_PARENT_CHECKOUT to another checkout's root")
+    src = Path(root) / "src" / "repro_torch" / "csrc" / "flash_decode.cu"
+    lib = build.BUILD_DIR / "parent_flash_decode.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    parent = ctypes.CDLL(str(lib))
+    FD._configure(parent)
+    return parent
+
+
+@pytest.mark.parametrize("B,H,K,D,T", [
+    (16, 32, 8, 128, 256), (4, 32, 8, 128, 1024), (16, 32, 32, 80, 256),
+    (4, 32, 32, 80, 1024), (16, 32, 8, 128, 8192)])
+def test_flash_decode_bits_equal_parent_checkout_on_card(gen, B, H, K, D, T):
+    """decode_common.cuh now holds what both decode kernels share: the bf16
+    kernel's outputs stay bit-identical to another checkout's kernel at the
+    serve shapes (and one multi-piece shape), in both dtypes."""
+    parent = _parent_flash_decode_lib()
+    ours = build.load(FD.SOURCE, FD._configure)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _fd_inputs(gen, B, H, K, D, T, dtype)
+        a = flash_decode(*args)
+        build._loaded[FD.SOURCE] = parent
+        try:
+            b = flash_decode(*args)
+        finally:
+            build._loaded[FD.SOURCE] = ours
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,8 +7,13 @@ mode on the same int8 inputs, made with numpy from a seed.  Tolerances are
 the JAX package's flash_decode ones (tests/kernels/test_kernels.py): atol
 2e-5 in float32, 5e-2 in bfloat16, rtol 1e-2; against float attention on
 the unquantized K/V, its int8 criterion (tests/kernels/
-test_flash_decode_int8.py): max error under 2% of max|ref|.
+test_flash_decode_int8.py): max error under 2% of max|ref|.  The CUDA
+kernel's exact widening of int8 codes (numpy, all 256 codes bit-exact) and
+its pieces, warp tiles, factored scales and merges (emulated in plain
+PyTorch) are held here too.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +22,12 @@ import torch
 from repro.kernels.flash_decode_int8 import flash_decode_int8 as jax_fd8
 from repro.kernels.flash_decode_int8 import quantize_kv as jax_quantize_kv
 from repro.kernels.ref import flash_decode_ref as jax_flash_decode_ref
+from repro_torch.kernels import flash_decode_int8 as FD8
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode_int8 import (flash_decode_int8,
                                                    quantize_kv)
 from repro_torch.kernels.ref import flash_decode_int8_ref, flash_decode_ref
+from test_torch_kernels import _lanes_per_row, _online
 
 ATOL = {"float32": 2e-5, "bfloat16": 5e-2}
 SHAPES = [  # (B, H, K, D, T, block_t): the JAX int8 test's, then a T that
@@ -226,3 +233,139 @@ def test_int8_zero_length_sequence_gets_zero_output():
     torch.testing.assert_close(out[1:2], ops.decode_attention_int8(
         *(a[1:2] for a in args), torch.tensor([5], dtype=torch.int32)))
     assert float(out[1].abs().max()) > 0
+
+
+# ---- the CUDA kernel's widening and its piece/merge arithmetic ----------
+# (held on the CPU; the kernel itself runs in tests/test_torch_cuda.py)
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (s >> 4 n) & 7 of the eight bytes x (0-3), y (4-7)."""
+    pool = np.stack([(x >> (8 * i)) & 0xFF for i in range(4)]
+                    + [np.full_like(x, (y >> (8 * i)) & 0xFF)
+                       for i in range(4)])
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= pool[(s >> (4 * n)) & 7] << (8 * n)
+    return out
+
+
+def test_byte_perm_mirror():
+    x = np.array([0x33221100], np.uint32)
+    assert _byte_perm(x, 0x77665544, 0x7531)[0] == 0x77553311
+    assert _byte_perm(x, 0x4B000000, 0x7442)[0] == 0x4B000022
+
+
+def test_widening_is_exact_for_all_256_codes():
+    """The kernel's widen4: x = word ^ 0x80808080, then per code j the
+    float bits __byte_perm(x, 0x4B000000, 0x7440 + j) = 2^23 + (code + 128),
+    minus 8388736.0f (2^23 + 128, in f32) gives the code exactly."""
+    codes = np.arange(-128, 128, dtype=np.int8)
+    words = codes.view(np.uint32)                # 64 words of 4 codes
+    x = words ^ np.uint32(0x80808080)
+    got = np.stack([_byte_perm(x, 0x4B000000, 0x7440 + j).view(np.float32)
+                    - np.float32(8388736.0) for j in range(4)], axis=1)
+    assert got.dtype == np.float32
+    assert np.array_equal(got.reshape(-1), codes.astype(np.float32))
+    assert np.float32(8388736.0) == 2.0 ** 23 + 128
+
+
+def _group_bucket(G):
+    return next(b for b in (1, 2, 4, 8, 16) if G <= b)
+
+
+def _int8_rows_per_tile(G, D):
+    """csrc/flash_decode_int8.cu's lane layout: CPL codes a lane takes of a
+    row (16 for G <= 4, 8 for G = 8, 4 for G = 16), D / CPL segments read by
+    the next power of two lanes (at most 32, NSEG segments a lane), RS row
+    steps a tile (4; 1 where the lane's V sums GB x CPL x NSEG take 128
+    registers)."""
+    gb = _group_bucket(G)
+    cpl = 16 if gb <= 4 else 8 if gb == 8 else 4
+    nseg = 2 if D // cpl > 32 else 1
+    rs = 1 if gb * cpl * nseg >= 128 else 4
+    return rs * (32 // _lanes_per_row(D // cpl))
+
+
+def _int8_tile(m, l, acc, qg, kq, ks, vq, vs):
+    """A tile's rows into a warp's state: scores ks_t (q . kq_t), base 2;
+    the sums rescaled only where the tile raises the max (corr = 1
+    otherwise); p_t vs_t times the V codes."""
+    s = (qg @ kq.float().T) * ks[None]
+    mx = s.max(-1).values
+    up = mx > m
+    corr = torch.where(up, torch.exp2(m - mx), torch.ones_like(m))
+    m = torch.where(up, mx, m)
+    p = torch.exp2(s - m[:, None])
+    return (m, l * corr + p.sum(-1),
+            acc * corr[:, None] + (p * vs[None]) @ vq.float())
+
+
+def _emulate_int8_kernel(q, kq, vq, ks, vs, lengths, n_sm=132, warps=4):
+    """The int8 kernel's arithmetic in plain PyTorch, f32: its `plan`'s
+    pieces, each a block of `warps` warps taking tiles in turn (each an
+    online softmax, `_int8_tile`), the warps combined in warp order; q
+    scaled by log2(e) / sqrt(D); a sequence of one piece written directly,
+    else its pieces merged in piece order."""
+    B, H, D = q.shape
+    T, K = kq.shape[1], kq.shape[2]
+    G = H // K
+    R = _int8_rows_per_tile(G, D)
+    piece, _ = FD8.plan(B, K, T, n_sm)
+    out = torch.zeros(B, H, D)
+    scale = math.log2(math.e) / math.sqrt(D)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), T)
+        for kh in range(K):
+            heads = slice(kh * G, (kh + 1) * G)
+            qg = q[b, heads].float() * scale
+            parts = []
+            for c0 in range(0, n, piece):
+                c1 = min(c0 + piece, n)
+                states = []
+                for w in range(warps):
+                    st = (torch.full((G,), -1e30), torch.zeros(G),
+                          torch.zeros(G, D))
+                    for t0 in range(c0 + w * R, c1, warps * R):
+                        r = slice(t0, min(t0 + R, c1))
+                        st = _int8_tile(*st, qg, kq[b, r, kh], ks[b, r, kh],
+                                        vq[b, r, kh], vs[b, r, kh])
+                    states.append(st)
+                parts.append(_online(states))
+            if parts:
+                _, l, acc = _online(parts)
+                out[b, heads] = acc / l[:, None]
+    return out
+
+
+MIRROR_SHAPES = SHAPES + [  # multi-piece (64-row pieces), G = 8 and 16
+    (3, 8, 4, 64, T, 64) for T in (63, 64, 65, 127, 128, 129)] + [
+    (2, 16, 2, 32, 200, 64), (2, 32, 2, 16, 150, 32),
+    (1, 32, 2, 256, 100, 32)]
+
+
+@pytest.mark.parametrize("B,H,K,D,T,bt", MIRROR_SHAPES)
+def test_kernel_arithmetic_mirror_matches_ref_and_pallas(B, H, K, D, T, bt):
+    """The kernel's pieces, warp tiles, factored scales and merges, in
+    plain PyTorch, against flash_decode_int8_ref and the Pallas kernel in
+    interpret mode on the same codes, at the JAX int8 test's shapes, at T
+    and lengths one row around the first piece ends, and at G = 8 and 16
+    (the kernel's other lane layouts); f32 at the JAX package's
+    tolerance."""
+    q, k, v, lengths = _inputs(B, H, K, D, T, "float32", seed=B * 7 + T)
+    piece, n_split = FD8.plan(B, K, T, 132)
+    edge = (B, H, K, D) == (3, 8, 4, 64)
+    if edge:
+        lengths = np.array([T, min(piece + 1, T), piece - 1], np.int32)
+    kq, vq, ks, vs = _quantized(k, v)
+    args = _port(q, "float32", kq, vq, ks, vs, lengths)
+    got = _emulate_int8_kernel(*args)
+    torch.testing.assert_close(got, flash_decode_int8_ref(*args),
+                               atol=2e-5, rtol=1e-2)
+    pallas = jax_fd8(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                     jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(lengths),
+                     block_t=bt, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=2e-5,
+                               rtol=1e-2)
+    if edge and T > piece:
+        assert n_split > 1 and int(lengths.max()) > piece

@@ -163,11 +163,20 @@ PLAN_CASES = [(B, K, T) for B in (1, 4, 16) for K in (1, 8, 32)
               for T in (1, 63, 64, 65, 256, 1000, 1024, 8192, 65536)]
 
 
+# the two decode kernels' plans: bf16 flash_decode's (pieces of at most
+# 512 rows) and flash_decode_int8's (1536: an int8 row is half the bytes)
+PLANS = {"flash_decode": (FD.plan, FD.MAX_PIECE),
+         "flash_decode_int8": (FD8.plan, FD8.MAX_PIECE)}
+
+
+@pytest.mark.parametrize("kernel", sorted(PLANS))
 @pytest.mark.parametrize("n_sm", [132, 16])
 @pytest.mark.parametrize("B,K,T", PLAN_CASES)
-def test_plan_puts_every_row_in_exactly_one_piece(B, K, T, n_sm):
-    piece, n_split = FD.plan(B, K, T, n_sm)
+def test_plan_puts_every_row_in_exactly_one_piece(B, K, T, n_sm, kernel):
+    plan, max_piece = PLANS[kernel]
+    piece, n_split = plan(B, K, T, n_sm)
     assert piece % FD.MIN_PIECE == 0 and piece >= FD.MIN_PIECE
+    assert piece <= max(max_piece, T // FD.MAX_SPLIT + FD.MIN_PIECE)
     assert (n_split - 1) * piece < T <= n_split * piece
     hits = torch.zeros(T, dtype=torch.int64)
     for s in range(n_split):
@@ -175,27 +184,41 @@ def test_plan_puts_every_row_in_exactly_one_piece(B, K, T, n_sm):
     assert bool((hits == 1).all())
 
 
+@pytest.mark.parametrize("kernel", sorted(PLANS))
 @pytest.mark.parametrize("B,K,T", [(1, 1, 1), (65535, 1, 4096),
                                    (1, 65535, 4096), (2, 8, 2 ** 24),
                                    (4, 8, 65536), (65535, 8, 2 ** 20)])
-def test_plan_grid_stays_inside_cuda_limits(B, K, T):
+def test_plan_grid_stays_inside_cuda_limits(B, K, T, kernel):
     """grid (K, B, n_split): x below 2^31, y and z below 2^16; at most
     MAX_SPLIT pieces, whose weights the merging block keeps in shared
     memory."""
-    piece, n_split = FD.plan(B, K, T, 132)
+    piece, n_split = PLANS[kernel][0](B, K, T, 132)
     assert 1 <= n_split <= min(FD.MAX_SPLIT, 65535)
     assert K < 2 ** 31 and B <= 65535
     assert n_split * piece >= T
 
 
+@pytest.mark.parametrize("kernel", sorted(PLANS))
 @pytest.mark.parametrize("B,H,K,D,T", MAIN)
-def test_plan_gives_two_blocks_per_sm_at_the_serve_shapes(B, H, K, D, T):
-    piece, n_split = FD.plan(B, K, T, 132)
+def test_plan_gives_two_blocks_per_sm_at_the_serve_shapes(B, H, K, D, T,
+                                                           kernel):
+    piece, n_split = PLANS[kernel][0](B, K, T, 132)
     assert n_split * K * B >= 2 * 132
 
 
 def test_int8_kernel_keeps_its_256_row_pieces():
-    assert FD8.CHUNK == 256
+    """The int8 kernel's pieces: no longer a fixed 256 rows (its CHUNK is
+    gone) but flash_decode's occupancy plan with a longer piece limit (an
+    int8 row is half a bf16 row's bytes); at the serve shapes, where the
+    limit does not bind, the two plans agree."""
+    assert not hasattr(FD8, "CHUNK")
+    assert FD8.MAX_PIECE > FD.MAX_PIECE
+    assert FD8.MAX_PIECE % FD.MIN_PIECE == 0
+    for B, K, T in PLAN_CASES:
+        assert FD8.plan(B, K, T, 132) == FD.plan(B, K, T, 132,
+                                                  max_piece=FD8.MAX_PIECE)
+    for B, _, K, _, T in MAIN:
+        assert FD8.plan(B, K, T, 132) == FD.plan(B, K, T, 132)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

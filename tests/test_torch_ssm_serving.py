@@ -6,10 +6,15 @@ tests/serving/test_serving.py (and tests/test_torch_serving.py), with the
 same rule: the same token streams and exactly equal `EnergyMeter`
 counters.  Every prompt here is at least d_conv - 1 = 3 tokens long; below
 that the two engines differ by design (ROADMAP C7,
-tests/test_torch_ssm.py).  Chunked prefill is a documented divergence
-(ROADMAP C8): the port refuses it for these models, and the reference's
-token streams under it differ from those of immediate prefill.
+tests/test_torch_ssm.py).  Under chunked prefill the reference's decode
+pass steps the recurrent state of slots still waiting on their prefill, so
+its token streams differ from those of immediate prefill (ROADMAP C8); the
+port keeps that state, so its chunked streams equal the immediate ones,
+while its meters, stats and times equal the reference's chunked run (the
+meters read no token value).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -46,7 +51,7 @@ def test_engine_matches_reference_engine(model, scenario):
     jeng = JS.PoolEngine(jcfg, jparams, profile=JP.H100_LLAMA70B, name="t",
                          **kw)
     if kw.get("prefill_chunk"):
-        _assert_chunked_prefill_diverges(jeng, jreqs, cfg, params, kw)
+        _assert_chunked_prefill_parity(model, jeng, jreqs, kw)
         return
     eng = PoolEngine(cfg, params, profile=P.H100_LLAMA70B, name="t", **kw)
     for je, e in zip(jreqs, reqs):
@@ -59,22 +64,28 @@ def test_engine_matches_reference_engine(model, scenario):
     assert eng.decode_steps > 0
 
 
-def _assert_chunked_prefill_diverges(jeng, jreqs, cfg, params, kw):
-    """ROADMAP C8: the port's engine refuses chunked prefill; the
-    reference's decode pass steps the recurrent state of slots still
-    waiting on their prefill, so its streams differ from the port's
-    immediate-prefill ones (which equal the reference's, scenario
-    "sequential")."""
-    with pytest.raises(NotImplementedError, match="C8"):
-        PoolEngine(cfg, params, profile=P.H100_LLAMA70B, name="t", **kw)
+def _assert_chunked_prefill_parity(model, jeng, jreqs, kw):
+    """ROADMAP C8.  The port's chunked-prefill token streams equal its
+    immediate-prefill streams and the reference's immediate streams; its
+    meters, stats() and first/finish times equal the reference's chunked
+    run exactly.  The reference's chunked streams still differ from the
+    immediate ones (its decode pass steps the waiting slots' state)."""
+    jcfg, jparams, cfg, params = model
     immediate = {k: v for k, v in kw.items() if k != "prefill_chunk"}
-    eng = PoolEngine(cfg, params, profile=P.H100_LLAMA70B, name="t",
+    jimm = JS.PoolEngine(jcfg, jparams, profile=JP.H100_LLAMA70B, name="t",
+                         **immediate)
+    eng = PoolEngine(cfg, params, profile=P.H100_LLAMA70B, name="t", **kw)
+    imm = PoolEngine(cfg, params, profile=P.H100_LLAMA70B, name="t",
                      **immediate)
-    for r in jreqs:
-        jeng.submit(r)
-        eng.submit(_port_request(r))
-    jeng.run_until_drained(max_iters=500)
-    eng.run_until_drained(max_iters=500)
-    want = {r.rid: r.generated for r in eng.completed}
-    assert len(want) == len(jreqs) == len(jeng.completed)
+    for e in (jeng, jimm, eng, imm):
+        for r in jreqs:
+            e.submit(_port_request(r) if isinstance(e, PoolEngine)
+                     else dataclasses.replace(r))
+        e.run_until_drained(max_iters=500)
+        assert len(e.completed) == len(jreqs)
+    want = {r.rid: r.generated for r in jimm.completed}
+    assert {r.rid: r.generated for r in imm.completed} == want
+    assert {r.rid: r.generated for r in eng.completed} == want
+    _assert_same_engine(jeng, eng, tokens=False)
+    assert eng.decode_steps > 0
     assert any(r.generated != want[r.rid] for r in jeng.completed)
