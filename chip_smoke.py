@@ -10,13 +10,15 @@ Phases, in order; any failure exits non-zero:
               started together; ptxas' registers and spills of every
               kernel instance;
   3. kernel   flash_decode against its plain PyTorch version at the JAX
-              package's sweep shapes, the serve path's four shapes
-              (llama31-8b G=4 D=128 and zamba2 G=1 D=80, each in a short
-              pool 16 slots x 256 and a long pool 4 x 1024), two larger
+              package's sweep shapes, the serve path's six shapes
+              (llama31-8b G=4 D=128, zamba2 G=1 D=80 and granite-moe G=2
+              D=64, each in a short pool 16 slots x 256 and a long pool
+              4 x 1024), two larger
               ones, the ragged T and the paper's 64K window (4 x 65536),
               float32 and bfloat16 at the limits of TOL; masked entries
               overwritten with +-999 leave the output unchanged; a planted
-              fault (every length one short) must fail the bfloat16 limit;
+              fault (every length one short, at llama's and granite's
+              long pool) must fail the bfloat16 limit;
               times at those shapes beside the bound and one SDPA call as
               the library yardstick, each both eager (CUDA events, warmed
               up, inputs cycled through more than the 50 MB L2) and as one
@@ -35,8 +37,9 @@ Phases, in order; any failure exits non-zero:
               diagonal term: a causal mask taking s <= t) must fail them.
               flash_decode_int8 against its plain version on the same
               quantize_kv codes and scales at the JAX int8 test's shapes,
-              the four serve shapes, the ragged T, the two larger ones and
-              the paper's 64K window (4 x 65536), q in float32 and bfloat16
+              llama's and zamba2's four serve shapes (MAIN), the ragged T,
+              the two larger ones and the paper's 64K window
+              (4 x 65536), q in float32 and bfloat16
               at the limits of TOL (both compute in f32 from the same codes
               and scales); codes past lengths overwritten with +-99 leave
               the output bit-equal; two planted faults made from calls of
@@ -85,6 +88,25 @@ Phases, in order; any failure exits non-zero:
               then each scan checked and timed at every prompt length the
               serve phase prefilled, eager and as a CUDA-graph replay
               (device_ms), with the launches and blocks of each call;
+  8. model    granite-moe-1b-a400m at full width and depth (bf16, seeded
+              random weights): the ragged prompts prefilled (walls as in
+              phase 6); every MoE block call of the prefills at
+              MOE_PREFILL_LENS and of one decode step at each of
+              MOE_DECODE_BATCHES held, in float32 on its own inputs,
+              against an independent dense formulation within
+              MOE_REL_BOUND with the routing and keep mask equal exactly,
+              the assignments dropped at capacity counted, and two planted
+              faults (the keep mask ignored, k - 1 experts) outside the
+              bound; then one decode step through the kernel and one
+              through the plain attention on the same cache, in bf16 and
+              on a float32 copy, logits as in phase 4 (MOE_LOGIT_REL_BOUND:
+              bf16 on the sequences routed alike in every layer, float32 on
+              all), with the (layer, sequence) pairs whose top-k expert
+              sets differ between the two runs; the skipped-tile fault
+              must exceed the bound;
+  9. serve    `run_policies` for granite as in phase 5: flash_decode
+              launches = 24 x its decode steps, no other kernel, and the
+              same decode steps as llama31-8b's on the same traffic;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -99,6 +121,7 @@ precision: TF32 is turned off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -124,6 +147,8 @@ from repro_torch.kernels.ref import (flash_decode_int8_ref,  # noqa: E402
                                      wkv6_ref)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.common import rms_norm, silu  # noqa: E402
 
 flash_decode, mamba_scan, wkv6 = FD.flash_decode, MS.mamba_scan, WK.wkv6
 flash_decode_int8, quantize_kv = FD8.flash_decode_int8, FD8.quantize_kv
@@ -145,11 +170,15 @@ SWEEP = [(2, 8, 4, 64, 100), (1, 16, 8, 128, 300), (3, 4, 4, 32, 64),
 # D = 80), each in the short pool 16 x 256 and the long pool 4 x 1024
 MAIN = [(16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),
         (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024)]
+# granite-moe-1b-a400m's attention (G = 2, D = 64) in the same two pools;
+# SERVE_SHAPES are all the shapes a serve phase may give flash_decode
+GRANITE = [(16, 16, 8, 64, 256), (4, 16, 8, 64, 1024)]
+SERVE_SHAPES = MAIN + GRANITE
 EXTRA = [(16, 32, 8, 128, 1024), (16, 32, 8, 128, 8192)]
 RAGGED_T = (16, 32, 8, 128, 1000)       # T a multiple of no tile or piece
 LONG = (4, 32, 8, 128, 65536)           # the paper's 64K window
-# flash_decode_int8: the JAX int8 test's shapes, then the flash_decode
-# shapes above and the paper's 64K window
+# flash_decode_int8: the JAX int8 test's shapes, then llama31-8b's and
+# zamba2's serve shapes (MAIN), the larger ones and the paper's 64K window
 INT8_SWEEP = [(2, 8, 4, 64, 100), (1, 4, 2, 128, 300), (3, 2, 2, 32, 50)]
 INT8_SHAPES = INT8_SWEEP + MAIN + [RAGGED_T] + EXTRA + [LONG]
 # int8 vs float attention on the unquantized K/V: the JAX package's
@@ -198,6 +227,31 @@ SCANS = {"mamba_scan": (mamba_scan, mamba_scan_ref),
          "wkv6": (wkv6, wkv6_ref)}
 FAULT = {"mamba_scan": "chunks scanned alone, no inter-chunk term",
          "wkv6": "causal mask taking s <= t"}
+MOE_ARCH = "granite-moe-1b-a400m"
+# The MoE block in float32 on each layer's own inputs, the port's dispatch
+# vs dense_moe: the two take the same f32 routing and differ only in the
+# order of their f32 sums (expert products over d = 1024 and fe = 512, the
+# gate-weighted sum over k = 8), about 1e-6 of max|y|; 1e-4 leaves a
+# hundredfold margin, and a dropped or missing assignment moves y by a
+# gate's share of an expert's output, ~1e-1 of max|y|
+MOE_REL_BOUND = 1e-4
+MOE_DECODE_BATCHES = (16, 4)            # the serve pools' slots
+MOE_PREFILL_LENS = (37, 1000)
+MOE_FAULTS = ("top k-1 experts", "keep mask ignored")
+MOE_TIMED_LAYERS = 4                    # 4 x 100 MB of expert weights
+# granite decode, kernel vs plain attention on one cache.  bf16, as phase
+# 4, on the sequences the two runs route alike in every layer: there the
+# logits came out bit-equal (3 of 4 sequences, on an H100 at 700 W).  A
+# sequence whose attention output rounds to another bf16 value at one
+# layer can meet a router near-tie (k-th/(k+1)-th probability gap 3.3e-4
+# against a shift of 8.3e-4 at layer 5 of the 37-token sequence), after
+# which the two runs sum other experts in most later layers (17 of 24) and
+# the logits differ by 0.51 of max|logits|: such a sequence is reported,
+# not gated.  float32 (weights and cache widened), every sequence: the
+# attention outputs differ in f32 summation order only; measured 4.5e-6 to
+# 5.2e-6 with no routing difference, so 1e-3 leaves a 200-fold margin; the
+# skipped tile gives 1.3-1.5 in both.
+MOE_LOGIT_REL_BOUND = {"bfloat16": LOGIT_REL_BOUND, "float32": 1e-3}
 COUNTED = {"flash_decode": flash_decode,
            "flash_decode_int8": flash_decode_int8, "mamba_scan": mamba_scan,
            "wkv6": wkv6}
@@ -205,6 +259,17 @@ COUNTED = {"flash_decode": flash_decode,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """`module.name` replaced by `fn` inside the block; yields the real one."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
 
 
 def inputs(B, H, K, D, T, dtype, gen, *, strided_q=False):
@@ -633,13 +698,14 @@ def phase_kernel():
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in SWEEP + MAIN + EXTRA + [RAGGED_T, LONG]:
+        for shape in SWEEP + SERVE_SHAPES + EXTRA + [RAGGED_T, LONG]:
             errs[(shape, dtype)] = check_kernel(shape, dtype, gen)
-        for shape in MAIN:
+        for shape in SERVE_SHAPES:
             check_kernel(shape, dtype, gen, strided_q=True)
     control_kernel(MAIN[1], gen)
+    control_kernel(GRANITE[1], gen)
     rows = {shape: time_kernel(shape, torch.bfloat16, gen)
-            for shape in MAIN + EXTRA + [RAGGED_T, LONG]}
+            for shape in SERVE_SHAPES + EXTRA + [RAGGED_T, LONG]}
     int8_errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in INT8_SHAPES:
@@ -654,7 +720,7 @@ def phase_kernel():
     # the mamba fault shows from the second chunk on: S > 128
     control_scan("mamba_scan", MAMBA_SHAPES[4], gen)
     control_scan("wkv6", WKV_SHAPES[4], gen)
-    return (max(errs[(s, torch.bfloat16)] for s in MAIN), rows,
+    return (max(errs[(s, torch.bfloat16)] for s in SERVE_SHAPES), rows,
             max(int8_errs[(s, torch.bfloat16)] for s in MAIN), int8_rows)
 
 
@@ -707,11 +773,8 @@ def phase_model(cfg, params):
     a, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos)
     b, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos,
                          impl="plain")
-    real, ops.decode_attention = ops.decode_attention, skip_tile
-    try:
+    with patched(ops, "decode_attention", skip_tile) as real:
         c, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos)
-    finally:
-        ops.decode_attention = real
     a, b, c = a[:, 0], b[:, 0], c[:, 0]
     if a.shape != (len(PLENS), cfg.vocab) or not bool(torch.isfinite(a).all()):
         raise SystemExit(f"decode logits malformed: {tuple(a.shape)}")
@@ -757,11 +820,8 @@ def phase_model_int8(cfg, params, tokens, cache, pos, a):
 
     for fn in COUNTED.values():
         fn.launches = 0
-    real, ops.decode_attention = ops.decode_attention, int8_attention
-    try:
+    with patched(ops, "decode_attention", int8_attention):
         d, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos)
-    finally:
-        ops.decode_attention = real
     counts = {name: fn.launches for name, fn in COUNTED.items()}
     d = d[:, 0]
     rel, agree, _, _ = rel_rows(d, a)
@@ -856,21 +916,15 @@ def phase_ssm_model(name, cfg, params):
         prefill_ms[plen] = sorted(walls[1:])[1]
         if a.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(a).all()):
             raise SystemExit(f"prefill logits malformed: {tuple(a.shape)}")
-        setattr(ops, op_name, checked)
-        try:
+        with patched(ops, op_name, checked):
             prefill(params, cfg, prompt)
-        finally:
-            setattr(ops, op_name, real)
         b, _ = prefill(params, cfg, prompt, impl="plain")
         rows16.append((a[0], b[0]))
         splice(caches[cfg.dtype], pc, slot, plen)
         a32, pc32 = prefill(params32, cfg32, prompt)
         b32, _ = prefill(params32, cfg32, prompt, impl="plain")
-        setattr(ops, op_name, faulted)
-        try:
+        with patched(ops, op_name, faulted):
             c32, _ = prefill(params32, cfg32, prompt)
-        finally:
-            setattr(ops, op_name, real)
         rows32.append((a32[0], b32[0], c32[0]))
         splice(caches[cfg32.dtype], pc32, slot, plen)
     log(f"  bf16: {seen['calls']} {kind} calls of the kernel-path prefill"
@@ -949,11 +1003,293 @@ def phase_ssm_model(name, cfg, params):
         f" per step; last tokens {tokens[:, 0].tolist()}")
 
 
+# ---- mixture of experts ----------------------------------------------------
+
+def dense_moe(p, cfg, x, *, k=None, keep_all=False):
+    """The MoE block as a plain formulation independent of the port's
+    dispatch: every expert's SwiGLU on every token, then per token the
+    gate-weighted sum over its top-k experts, an assignment kept when fewer
+    than C earlier tokens chose the same expert (counted, not sorted).
+    `k` and `keep_all` plant the faults (fewer experts, the keep mask
+    ignored).  Returns x + y, the keep mask (T, k) and the experts (T, k)."""
+    B, S, d = x.shape
+    T, E = B * S, cfg.n_experts
+    k = k or cfg.top_k
+    h = rms_norm(x, p["norm"], cfg.norm_eps).reshape(T, d)
+    probs = torch.softmax(h.float() @ p["router"], dim=-1)
+    gates, idx = probs.topk(k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    chose = torch.zeros(T, E, dtype=torch.long, device=x.device) \
+        .scatter_(1, idx, 1)
+    earlier = chose.cumsum(0) - chose
+    C = T if S == 1 else max(int(T * cfg.top_k / E * cfg.capacity_factor), 1)
+    keep = earlier.gather(1, idx) < C
+    if keep_all:
+        keep = torch.ones_like(keep)
+    g = torch.einsum("td,edf->etf", h, p["w_gate"])
+    u = torch.einsum("td,edf->etf", h, p["w_up"])
+    out = torch.bmm(silu(g) * u, p["w_down"])                   # (E, T, d)
+    picked = out[idx, torch.arange(T, device=x.device)[:, None]]   # (T, k, d)
+    y = (picked.float() * (gates * keep)[..., None]).sum(1)
+    return x + y.reshape(B, S, d).to(x.dtype), keep, idx
+
+
+def moe_check(p, cfg, x):
+    """One MoE block call on the model's own input x, in float32: the
+    port's `apply_moe` against `dense_moe`, the routing and keep mask equal
+    exactly, and the planted faults' error (the ignored keep mask only
+    where this call drops).  Errors are max|dy| / max|y| of the block's
+    output y = out - x."""
+    x32 = x.float()
+    p32 = {key: t.float() for key, t in p.items()}
+    B, S, d = x.shape
+    T, k = B * S, cfg.top_k
+    want, keep, idx = dense_moe(p32, cfg, x32)
+    want = want - x32
+    scale = float(want.abs().max())
+
+    def rel(out):
+        return float((out - x32 - want).abs().max()) / scale
+
+    h = rms_norm(x32, p32["norm"], cfg.norm_eps).reshape(T, d)
+    _, pidx = moe.router_topk(h @ p32["router"], k)
+    _, (_, pkeep, inv) = moe._dispatch_group(
+        h, pidx, cfg.n_experts, k, moe.capacity(cfg, T, S))
+    drops = int((~keep).sum())
+    faults = {"top k-1 experts": rel(dense_moe(p32, cfg, x32, k=k - 1)[0])}
+    if drops:
+        faults["keep mask ignored"] = rel(
+            dense_moe(p32, cfg, x32, keep_all=True)[0])
+    return dict(rel=rel(moe.apply_moe(p32, cfg, x32)), drops=drops,
+                assignments=T * k, experts=int(idx.unique().numel()),
+                same_keep=torch.equal(pidx, idx)
+                and torch.equal(pkeep[inv].reshape(T, k), keep),
+                C=moe.capacity(cfg, T, S), faults=faults)
+
+
+def time_moe(cfg, params, seen):
+    """One bf16 MoE block call at the inputs of the first MOE_TIMED_LAYERS
+    layers (cycled, each with its own weights: more than the L2), eager and
+    as a CUDA-graph replay, beside the least bytes two dispatches would
+    move: every expert's weights (what the dense (E, C, d) products read)
+    and only the experts the batch routes to (the mean over all layers of
+    `seen`), each plus x read and the output written once; and beside the
+    bf16 operations of the routed assignments' products."""
+    sets = [(params["layers"][i]["b1_moe"], cfg, s["x"])
+            for i, s in enumerate(seen[:MOE_TIMED_LAYERS])]
+    x = sets[0][2]
+    fe, E, d = cfg.moe_d_ff, cfg.n_experts, cfg.d_model
+    per_expert = 3 * d * fe * x.element_size()
+    io = 2 * x.numel() * x.element_size()
+    experts = sum(s["experts"] for s in seen) / len(seen)
+    flops = 2 * 3 * seen[0]["assignments"] * d * fe
+    b_all = _bound(E * per_expert + io, flops, torch.bfloat16)
+    b_routed = _bound(experts * per_expert + io, flops, torch.bfloat16)
+    return dict(shape=dict(zip("BSd", x.shape)), experts_routed=experts,
+                ms=time_ms(moe.apply_moe, sets, 20),
+                device_ms=graph_ms(moe.apply_moe, sets, 20),
+                bound_all_experts_ms=b_all[0], bound_routed_ms=b_routed[0],
+                bound_routed_by=b_routed[1], weight_gb_all=E * per_expert
+                * cfg.n_repeat / 1e9, weight_gb_routed=experts * per_expert
+                * cfg.n_repeat / 1e9)
+
+
+def phase_moe_model(cfg, params):
+    """granite-moe-1b-a400m at full width: ragged prompts prefilled (walls
+    as in phase 6), then
+    (a) every MoE block call of the prefills at MOE_PREFILL_LENS and of a
+        decode step at each of MOE_DECODE_BATCHES held against `dense_moe`
+        in float32 within MOE_REL_BOUND (`moe_check`), with the assignments
+        dropped at capacity counted and both planted faults outside the
+        bound;
+    (b) one decode step through flash_decode and one through the plain
+        attention on the same cache, logits compared as in phase 4, with
+        the (layer, sequence) pairs whose top-k expert sets differ between
+        the two runs; in bf16 and on a float32 copy of the weights and
+        cache (`moe_decode_twins`); the skipped-tile fault must exceed the
+        bound in both."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    real = M.apply_moe
+    checks = {}
+
+    def checked(tag):
+        seen = checks.setdefault(tag, [])
+
+        def fn(p, c, x):
+            seen.append(moe_check(p, c, x))
+            if len(seen) <= MOE_TIMED_LAYERS:
+                seen[-1]["x"] = x.clone()
+            return real(p, c, x)
+        return fn
+
+    cache = M.init_cache(cfg, len(PLENS), 1024, device=DEVICE)
+    first, prompts, prefill_ms, first_ms = [], [], {}, {}
+    for slot, plen in enumerate(PLENS):
+        prompt = torch.randint(0, cfg.vocab, (1, plen), generator=gen,
+                               device=DEVICE)
+        prompts.append(prompt)
+        walls = []
+        for _ in range(4):     # one warm-up at this length, then 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pc = M.forward(params, cfg, prompt, mode="prefill")
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        first_ms[plen] = walls[0]
+        prefill_ms[plen] = sorted(walls[1:])[1]
+        if logits.shape != (1, 1, cfg.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"prefill logits malformed:"
+                             f" {tuple(logits.shape)}")
+        splice(cache, pc, slot, plen)
+        first.append(int(logits[0, -1].argmax()))
+        if plen in MOE_PREFILL_LENS:
+            with patched(M, "apply_moe", checked(f"prefill S={plen}")):
+                M.forward(params, cfg, prompt, mode="prefill")
+    log(f"  bf16 prefill wall ms by length (host clock to synchronize),"
+        f" median of 3 after one warm-up prefill at that length:"
+        f" {json.dumps(prefill_ms)}; the warm-up prefill itself:"
+        f" {json.dumps(first_ms)}")
+    tokens = torch.tensor(first, device=DEVICE)[:, None]
+    pos = np.array(PLENS)
+    for B in MOE_DECODE_BATCHES:
+        reps = B // len(PLENS)
+        toks = tokens if reps == 1 else torch.randint(
+            0, cfg.vocab, (B, 1), generator=gen, device=DEVICE)
+        batch = {n: {key: t.repeat_interleave(reps, 1) for key, t in c.items()}
+                 for n, c in cache.items()}
+        with patched(M, "apply_moe", checked(f"decode B={B}")):
+            M.decode_step(params, cfg, toks, batch, np.repeat(pos, reps))
+        del batch
+    bad = []
+    for tag, seen in checks.items():
+        drops = [s["drops"] for s in seen]
+        faults = {name: min(s["faults"][name] for s in seen
+                            if name in s["faults"])
+                  for name in MOE_FAULTS if any(name in s["faults"]
+                                                for s in seen)}
+        log(f"  moe {tag}: {len(seen)} calls, port vs dense max|dy|/max|y|"
+            f" {max(s['rel'] for s in seen):.3e} (bound {MOE_REL_BOUND});"
+            f" routing and keep mask equal in"
+            f" {sum(s['same_keep'] for s in seen)}/{len(seen)}; C"
+            f" {seen[0]['C']}; assignments dropped at capacity {sum(drops)}"
+            f" of {sum(s['assignments'] for s in seen)} (per layer {drops});"
+            f" planted faults, least"
+            f" error where each can show: {json.dumps(faults)} (must exceed"
+            f" {MOE_REL_BOUND})")
+        if max(s["rel"] for s in seen) > MOE_REL_BOUND \
+                or not all(s["same_keep"] for s in seen) \
+                or any(f <= MOE_REL_BOUND for f in faults.values()):
+            bad.append(tag)
+        if tag.startswith("decode") and any(drops):
+            bad.append(f"{tag} dropped an assignment")
+    if not any("keep mask ignored" in s["faults"]
+               for seen in checks.values() for s in seen):
+        bad.append("no prefill dropped an assignment: the keep-mask fault"
+                   " was never shown")
+    if len(checks) != len(MOE_PREFILL_LENS) + len(MOE_DECODE_BATCHES) \
+            or any(len(seen) != cfg.n_repeat for seen in checks.values()):
+        bad.append("not every MoE block was checked")
+    if bad:
+        raise SystemExit(f"the MoE block disagrees with its plain"
+                         f" formulation, or a fault passed: {bad}")
+    for tag, seen in checks.items():
+        log(f"  timing moe {tag}: {json.dumps(time_moe(cfg, params, seen))}")
+
+    moe_decode_twins(cfg, params, tokens, cache, pos)
+    cfg32, params32 = to_f32(cfg, params)
+    cache32 = M.init_cache(cfg32, len(PLENS), 1024, device=DEVICE)
+    for slot, prompt in enumerate(prompts):
+        splice(cache32, M.forward(params32, cfg32, prompt, mode="prefill")[1],
+               slot, prompt.shape[1])
+    moe_decode_twins(cfg32, params32, tokens, cache32, pos)
+
+
+def moe_decode_twins(cfg, params, tokens, cache, pos):
+    """One decode step through flash_decode and one through the plain
+    attention on the same cache (and one with the skipped-tile fault),
+    recording every MoE block's routing.  Per sequence: the logits as in
+    phase 4, and the layers whose top-k expert set differs between the two
+    runs; for the first such layer, the plain run's gap between its k-th
+    and (k+1)-th router probability and the largest change of that token's
+    router probabilities between the runs.  Held to MOE_LOGIT_REL_BOUND of
+    the dtype: in float32 every sequence, in bf16 those routed alike in
+    every layer; a bf16 sequence routed otherwise is reported (from its
+    first differing layer on, the two runs sum other experts)."""
+    real = M.apply_moe
+    probs = {}
+
+    def recording(tag):
+        store = probs.setdefault(tag, [])
+
+        def fn(p, c, x):
+            B, S, d = x.shape
+            h = rms_norm(x, p["norm"], c.norm_eps).reshape(B * S, d)
+            store.append(torch.softmax(h.float() @ p["router"], dim=-1))
+            return real(p, c, x)
+        return fn
+
+    def skip_tile(q, k, v, lengths, *, impl=None):
+        return attn(q, k, v, (lengths - SKIP_ROWS).clamp(min=1), impl=impl)
+
+    with patched(M, "apply_moe", recording("kernel")):
+        a, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos)
+    with patched(M, "apply_moe", recording("plain")):
+        b, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos,
+                             impl="plain")
+    with patched(ops, "decode_attention", skip_tile) as attn:
+        c, _ = M.decode_step(params, cfg, tokens, clone_cache(cache), pos)
+    a, b, c = a[:, 0], b[:, 0], c[:, 0]
+    if a.shape != (len(PLENS), cfg.vocab) or not bool(torch.isfinite(a).all()):
+        raise SystemExit(f"decode logits malformed: {tuple(a.shape)}")
+    k = cfg.top_k
+    flips, first = [], []
+    for s in range(len(PLENS)):
+        layers = [layer for layer, (pa, pb) in enumerate(zip(probs["kernel"],
+                                                             probs["plain"]))
+                  if not torch.equal(pa[s].topk(k).indices.sort().values,
+                                     pb[s].topk(k).indices.sort().values)]
+        flips.append(layers)
+        if layers:
+            pa = probs["kernel"][layers[0]][s]
+            pb = probs["plain"][layers[0]][s]
+            top = pb.topk(k + 1).values
+            first.append(dict(layer=layers[0],
+                              gap=float(top[k - 1] - top[k]),
+                              shift=float((pa - pb).abs().max())))
+    bound = MOE_LOGIT_REL_BOUND[cfg.dtype]
+    gated = [s for s in range(len(PLENS))
+             if cfg.dtype == "float32" or not flips[s]]
+    rel, agree, gap, _ = rel_rows(a, b)
+    tie_ok = rel_rows(a[gated], b[gated])[3] if gated else True
+    rel_fault = rel_rows(c, b)[0]
+    log(f"  {cfg.dtype} decode logits at positions {list(PLENS)}, per"
+        f" sequence: max|d|/max|logits| kernel vs plain"
+        f" {[f'{r:.3e}' for r in rel]} (bound {bound} on"
+        f" sequences {gated}); top-1 equal {agree}, plain top-1/top-2 gap"
+        f" {[f'{g:.3e}' for g in gap]}")
+    log(f"  {cfg.dtype} layers whose top-{k} expert set differs between the"
+        f" two runs, per sequence: {flips}; at the first such layer, the"
+        f" plain run's k-th/(k+1)-th router probability gap and the largest"
+        f" change of the token's router probabilities: {json.dumps(first)}")
+    log(f"  {cfg.dtype} control, attention skipping the last {SKIP_ROWS}-row"
+        f" tile: max|d|/max|logits| {[f'{r:.3e}' for r in rel_fault]} (must"
+        f" exceed {bound})")
+    if any(rel[s] > bound for s in gated):
+        raise SystemExit(f"full-width granite {cfg.dtype} decode disagrees"
+                         " with its plain-attention twin")
+    if not tie_ok:
+        raise SystemExit("a top-1 token differs where the plain logits"
+                         " have no near-tie")
+    if min(rel_fault) <= bound:
+        raise SystemExit("the logits bound does not catch a skipped tile")
+
+
 def phase_serve(cfg, params):
     """`run_policies` with every kernel count set to 0 just before and
     read just after; checks drain, tokens and launch counts.  Returns the
-    counts, flash_decode launches by shape and prefills by prompt
-    length."""
+    counts, flash_decode launches by shape, prefills by prompt length,
+    the scan blocks per prefill and the decode steps."""
     for fn in COUNTED.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1007,13 +1343,13 @@ def phase_serve(cfg, params):
             or not any(counts.values()):
         raise SystemExit("the serve path did not go through its kernels"
                          " once per block per decode step / prefill")
-    if not set(by_shape) <= set(MAIN):
+    if not set(by_shape) <= set(SERVE_SHAPES):
         raise SystemExit(f"the serve path gave the kernel shapes"
                          f" {sorted(by_shape)}, not all checked and timed"
-                         f" (MAIN {MAIN})")
+                         f" ({SERVE_SHAPES})")
     if by_shape:
         log(f"  flash_decode launches by (B, H, K, D, T): {by_shape}")
-    return counts, by_shape, by_len, per_prefill
+    return counts, by_shape, by_len, per_prefill, steps
 
 
 def load_model(name):
@@ -1064,7 +1400,7 @@ def main() -> int:
     log("[5] serve llama31-8b: " + json.dumps(SERVE))
     launches = Counter()
     fd_launches = Counter()
-    counts, by_shape, _, _ = phase_serve(cfg, params)
+    counts, by_shape, _, _, steps = phase_serve(cfg, params)
     launches.update(counts)
     fd_launches.update(by_shape)
     del params
@@ -1078,7 +1414,7 @@ def main() -> int:
         with torch.inference_mode():
             phase_ssm_model(name, cfg, params)
         log(f"[7] serve {name}: " + json.dumps(SERVE))
-        counts, by_shape, by_len, per_prefill = phase_serve(cfg, params)
+        counts, by_shape, by_len, per_prefill, _ = phase_serve(cfg, params)
         launches.update(counts)
         fd_launches.update(by_shape)
         del params
@@ -1098,6 +1434,21 @@ def main() -> int:
                 f" ({r['bound_by']}) plain_ms {r['plain_ms']:.3f}"
                 f" launches/call {r['launches_per_call']} blocks"
                 f" {r['blocks']} serve launches {r['serve_launches']}")
+    log(f"[8] model: {MOE_ARCH}, full width")
+    cfg, params = load_model(MOE_ARCH)
+    with torch.inference_mode():
+        phase_moe_model(cfg, params)
+    log(f"[9] serve {MOE_ARCH}: " + json.dumps(SERVE))
+    counts, by_shape, _, _, moe_steps = phase_serve(cfg, params)
+    launches.update(counts)
+    fd_launches.update(by_shape)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  {moe_steps} decode steps, as llama31-8b's {steps} (the same"
+        f" traffic gives the same lengths)")
+    if moe_steps != steps:
+        raise SystemExit("granite's serve took other decode steps than"
+                         " llama31-8b's on the same traffic")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -1,13 +1,16 @@
 """Analytical model description (the paper's Table 2 / Table 5 inputs).
 
 `ModelSpec` is the *analytical* view of a model: just enough geometry for
-the serving meter to price a prefill (`streamed_params`).  The executable
+the serving meter to price a prefill (`streamed_params`) and for a
+computed profile to size weight streaming and KV bytes per token (the MoE
+lever of `core.moe`).  The executable
 architectures live in `repro_torch.models`; `ArchConfig.analytical_spec()`
 bridges each of them into this form.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 
@@ -35,7 +38,38 @@ class ModelSpec:
         """Parameters touched per decode iteration (§3.2 MoE override)."""
         return self.n_active_params if self.is_moe else self.n_params
 
+    def weight_bytes(self, *, active_only: bool = True) -> float:
+        p = self.streamed_params if active_only else self.n_params
+        return p * self.dtype_bytes
 
-# The paper's reference model (Table 2 / §4).
+    def kv_bytes_per_token(self, *, tp: int = 1, kv_sharded: bool = True,
+                           overhead: float = 1.0) -> float:
+        """kappa: KV bytes per token per GPU.
+
+        kv_sharded=True  -> TP-sharded GQA storage (paper Table 1 / fleet
+                            results): each GPU stores n_kv/TP heads (>=1).
+        kv_sharded=False -> full replication per GPU (paper Table 2
+                            ComputedProfile behaviour).
+        """
+        if self.n_kv_heads == 0:
+            return 0.0  # attention-free: no per-token KV growth
+        if kv_sharded:
+            # Each GPU stores ceil(n_kv / TP) heads, floor 1 (a head cannot
+            # be split; TP > n_kv replicates single heads across ranks).
+            heads = float(max(math.ceil(self.n_kv_heads / tp), 1))
+        else:
+            heads = float(self.n_kv_heads)
+        per_layer = 2.0 * heads * self.head_dim * self.dtype_bytes
+        return per_layer * self.n_layers * self.attn_layer_fraction * overhead
+
+
+# The paper's own models (Table 2 / §4): the dense Llama-3.1 family and the
+# MoE of the §3.2 lever.
+LLAMA31_8B = ModelSpec("Llama-3.1-8B", n_params=8.03e9, n_layers=32,
+                       n_kv_heads=8, head_dim=128)
 LLAMA31_70B = ModelSpec("Llama-3.1-70B", n_params=70.6e9, n_layers=80,
                         n_kv_heads=8, head_dim=128)
+LLAMA31_405B = ModelSpec("Llama-3.1-405B", n_params=405e9, n_layers=126,
+                         n_kv_heads=8, head_dim=128)
+QWEN3_235B_A22B = ModelSpec("Qwen3-235B-A22B", n_params=235e9, n_layers=94,
+                            n_kv_heads=4, head_dim=128, n_active_params=22e9)

@@ -8,9 +8,11 @@ Works with python floats and numpy arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
+
+from .hardware import ChipSpec
 
 ArrayLike = Union[float, int, np.ndarray]
 
@@ -36,6 +38,14 @@ class PowerModel:
         safe_b = np.maximum(b, 1e-9)
         logistic = self.p_range_w / (1.0 + np.exp(-self.k * (np.log2(safe_b) - self.x0)))
         return np.where(b <= 0, self.p_idle_w, self.p_idle_w + logistic)
+
+    @classmethod
+    def from_tdp_fraction(cls, chip: ChipSpec, x0: float = 4.2, k: float = 1.0,
+                          quality: Optional[str] = None) -> "PowerModel":
+        """FAIR-quality projection: P_idle = 0.43 TDP, P_nom = 0.86 TDP."""
+        return cls(name=chip.name, p_idle_w=chip.p_idle_w,
+                   p_nom_w=chip.p_nom_w, k=k, x0=x0,
+                   quality=quality or chip.quality)
 
 
 # H100: fitted to ML.ENERGY v3.0 / G2G Fig. 2 (HIGH).

@@ -7,8 +7,9 @@ marked `shared` (Zamba2's attention + MLP pair), used at every repeat.
 Weights are stored (in, out) and used as `x @ W`, the reference's layout,
 so `convert.py` copies them as they are.
 
-Ported block kinds: attention, MLP, Mamba2 and RWKV6.  Mixture-of-experts,
-cross-attention, the encoder and patch prefixes raise NotImplementedError.
+Ported block kinds: attention, MLP, mixture-of-experts, Mamba2 and RWKV6.
+Cross-attention, the encoder and patch prefixes raise NotImplementedError.
+The MoE block's aux loss is not returned: it waits for training.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .attention import (attention_decode, attention_full, decode_index,
                         init_attention)
 from .common import dense_init, dtype_of, rms_norm
 from .mlp import apply_mlp, init_mlp
+from .moe import apply_moe, init_moe
 from .spec import ArchConfig
 from .ssm import (init_mamba2, init_rwkv6, mamba2_decode, mamba2_full,
                   rwkv6_decode, rwkv6_full)
@@ -28,8 +30,8 @@ from .ssm import (init_mamba2, init_rwkv6, mamba2_decode, mamba2_full,
 Params = Dict[str, Any]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
-_INIT = {"attn": init_attention, "mlp": init_mlp, "mamba2": init_mamba2,
-         "rwkv6": init_rwkv6}
+_INIT = {"attn": init_attention, "mlp": init_mlp, "moe": init_moe,
+         "mamba2": init_mamba2, "rwkv6": init_rwkv6}
 _FULL = {"mamba2": mamba2_full, "rwkv6": rwkv6_full}
 _DECODE = {"mamba2": mamba2_decode, "rwkv6": rwkv6_decode}
 
@@ -113,6 +115,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                 x, c = attention_full(p, cfg, x, mode=mode)
             elif b.kind == "mlp":
                 x = apply_mlp(p, cfg, x)
+            elif b.kind == "moe":
+                x = apply_moe(p, cfg, x)
             else:
                 x, c = _FULL[b.kind](p, cfg, x, mode=mode, impl=impl)
             if c is not None:
@@ -155,6 +159,8 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                                      idx, impl=impl)
             elif b.kind == "mlp":
                 x = apply_mlp(p, cfg, x)
+            elif b.kind == "moe":
+                x = apply_moe(p, cfg, x)
             else:
                 x, new = _DECODE[b.kind](p, cfg, x,
                                          {key: t[r] for key, t in c.items()})

@@ -1,0 +1,139 @@
+"""Top-k MoE block with sort-based capacity dispatch.
+
+The reference's scheme (`repro.models.moe`, MaxText-style), not a dense
+one-hot einsum: each token's k assignments are stably sorted by expert id,
+gathered into a fixed (E, C, d) buffer, run through batched expert
+products, and combined back with the router gates.  An expert takes at most
+C assignments, earliest tokens first; the rest are dropped (their share of
+the output is 0).  Decode (S == 1) uses C = tokens, so nothing is dropped.
+
+The expert products stay plain `torch.einsum`s over the (E, C, d) buffer,
+as the reference leaves them to XLA outside any Pallas kernel: they read
+every expert's weights whatever the routing.
+
+Forward only.  The reference's gather-only custom-VJP primitives
+(`_permute`, `_slot_gather`, `_pick`) and the index maps only their
+backward passes read (`token_slot`, `slot_s`) wait for the training slice
+(ROADMAP A 5), as does `apply_moe`'s aux loss; `load_balance_loss` is here
+as a plain function.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .common import dense_init, dtype_of, rms_norm, silu
+
+# Dispatch groups: the reference's `_n_dispatch_groups` gives one routing
+# group per data shard under a mesh, and 1 without one.  The port has no
+# mesh, so the whole batch is one group, as on a single device there;
+# per-shard groups come with the distribution layer (ROADMAP A 6).
+DISPATCH_GROUPS = 1
+
+
+def init_moe(generator: torch.Generator, cfg, device: torch.device) -> dict:
+    d, E = cfg.d_model, cfg.n_experts
+    fe = cfg.moe_d_ff or cfg.d_ff
+    dt = dtype_of(cfg)
+    return {"norm": torch.ones(d, dtype=torch.float32, device=device),
+            "router": dense_init(generator, (d, E), scale=0.02,
+                                 dtype=torch.float32, device=device),
+            "w_gate": dense_init(generator, (E, d, fe), dtype=dt,
+                                 device=device),
+            "w_up": dense_init(generator, (E, d, fe), dtype=dt, device=device),
+            "w_down": dense_init(generator, (E, fe, d), dtype=dt,
+                                 device=device)}
+
+
+def router_topk(logits: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax-then-topk router (granite/grok convention): gates renormed."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    return gates, idx
+
+
+def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * p_e."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.reshape(-1, n_experts).mean(0)
+    frac = torch.nn.functional.one_hot(idx.reshape(-1), n_experts) \
+        .float().mean(0)
+    return n_experts * torch.sum(me * frac)
+
+
+def _dispatch_group(hf: torch.Tensor, idx: torch.Tensor, E: int, k: int,
+                    C: int):
+    """Sort-based dispatch of one group: hf (Tg, d) -> (E, C, d) and the
+    combine metadata (dest, keep, inv_order), all over the Tg·k assignments
+    in expert-sorted order.
+
+    The sort is stable, as `jnp.argsort` is: within an expert, assignments
+    keep token order, so the ones past C that are dropped are the latest
+    tokens'.  Dropped assignments are scattered to a sentinel row E·C of an
+    index map one row longer, which is then cut off.  Everything stays on
+    the tensors' device: the expert counts are a scatter-add of fixed
+    length E (`torch.bincount` would first read the largest id back to the
+    host to size its output).
+    """
+    Tg, d = hf.shape
+    Tk = Tg * k
+    dev = hf.device
+    flat_e = idx.reshape(-1)                                    # (Tk,)
+    order = torch.argsort(flat_e, stable=True)
+    arange = torch.arange(Tk, device=dev)
+    inv_order = torch.empty_like(order)
+    inv_order[order] = arange                   # = argsort(order), cheaper
+    sorted_e = flat_e[order]
+    token_of = order // k
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = arange - starts[sorted_e]
+    keep = pos_in_e < C
+    dest = sorted_e * C + torch.where(keep, pos_in_e, 0)
+    safe_dest = torch.where(keep, dest, E * C)       # dropped: off the end
+    slot_token = torch.full((E * C + 1,), Tg, dtype=torch.long, device=dev)
+    slot_token[safe_dest] = token_of
+    hf_pad = torch.cat([hf, hf.new_zeros(1, d)])    # row Tg: empty slots
+    buf = hf_pad[slot_token[:E * C]]
+    return buf.reshape(E, C, d), (dest, keep, inv_order)
+
+
+def _combine_group(out_e: torch.Tensor, meta, gates: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    dest, keep, inv_order = meta
+    Tg = gates.shape[0]
+    d = out_e.shape[-1]
+    picked = torch.where(keep[:, None], out_e.reshape(-1, d)[dest], 0)
+    unsorted = picked[inv_order]
+    return torch.einsum("tkd,tk->td", unsorted.reshape(Tg, k, d).float(),
+                        gates)
+
+
+def capacity(cfg, T: int, S: int) -> int:
+    """Slots per expert: C = Tg at decode (an expert's load is at most Tg,
+    so decode never drops a token), else Tg·k/E·capacity_factor."""
+    Tg = T // DISPATCH_GROUPS
+    if S == 1:
+        return Tg
+    return max(int(Tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
+
+
+def apply_moe(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> x + the routed experts' SwiGLU output."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, B * S, S)
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    hf = h.reshape(B * S, d)
+    gates, idx = router_topk(hf.float() @ params["router"], k)
+    buf, meta = _dispatch_group(hf, idx, E, k, C)               # (E, C, d)
+    up = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
+    gate = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
+    out_e = torch.einsum("ecf,efd->ecd", silu(gate) * up, params["w_down"])
+    y = _combine_group(out_e, meta, gates, k)                   # (Tg, d) f32
+    return x + y.reshape(B, S, d).to(x.dtype)

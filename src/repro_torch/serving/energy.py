@@ -25,6 +25,14 @@ class EnergyMeter:
     profile: BaseProfile
     joules: float = 0.0
     prefill_joules: float = 0.0
+    # MoE expert-dispatch attribution: the engine sets `dispatch_s` to its
+    # pool's per-iteration all-to-all floor (core.moe.with_dispatch_floor —
+    # already *inside* the roofline's tau, so this never adds energy, it
+    # only labels the share of each decode charge spent moving activations
+    # between experts instead of streaming weights)
+    dispatch_s: float = 0.0
+    dispatch_joules: float = 0.0
+    m_dispatch_joules: float = 0.0
     tokens: int = 0
     prefill_tokens: int = 0
     sim_time_s: float = 0.0
@@ -47,10 +55,13 @@ class EnergyMeter:
                                                    mean_context)) * 1e-3
         power = self.profile.power_w(n_active)
         self.last_charge_in_window = self._in_window(tau_s)
+        dispatch_j = power * min(self.dispatch_s, tau_s)
         if self.last_charge_in_window:
             self.m_tokens += n_active
             self.m_joules += power * tau_s
+            self.m_dispatch_joules += dispatch_j
         self.joules += power * tau_s
+        self.dispatch_joules += dispatch_j
         self.tokens += n_active
         self.sim_time_s += tau_s
         return tau_s

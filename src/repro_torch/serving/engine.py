@@ -65,7 +65,8 @@ class PoolEngine:
 
     def __init__(self, cfg, params, *, window: int, profile: BaseProfile,
                  n_slots: Optional[int] = None, name: str = "pool",
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 dispatch_ms: float = 0.0):
         self.cfg, self.params = cfg, params
         self.window = window
         self.name = name
@@ -74,6 +75,10 @@ class PoolEngine:
             else max(profile.n_max(window), 1)
         self.prefill_chunk = prefill_chunk
         self.meter = EnergyMeter(profile)
+        # MoE all-to-all attribution: the floor is already inside the
+        # profile roofline's w_ms (core.moe.with_dispatch_floor); telling
+        # the meter lets it label that share of every decode charge
+        self.meter.dispatch_s = max(dispatch_ms, 0.0) * 1e-3
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * self.n_slots
         n = self.n_slots

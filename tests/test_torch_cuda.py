@@ -1,7 +1,8 @@
 """Port kernels on the card: each kernel against its plain version.
 
 flash_decode at the JAX sweep shapes and the serve path's (llama31-8b:
-G = 4, D = 128; zamba2's shared attention: G = 1, D = 80), at D from 8 to
+G = 4, D = 128; zamba2's shared attention: G = 1, D = 80; granite-moe:
+G = 2, D = 64), at D from 8 to
 256, at T and lengths on the edges of its pieces, on its narrow path, with
 a strided q; two runs bit-identical, and a CUDA-graph replay equal to the
 eager call;
@@ -18,6 +19,10 @@ the edges of their 16-row tiles and chunks and every served prompt length
 (wkv6 also under strong decay, w in [0.05, 0.06]), at B = 2, on strided
 and narrow operands; two runs bit-identical, and a CUDA-graph replay
 equal to the eager call.
+The MoE block (no kernel of its own: plain products over the sort-based
+dispatch) at granite-moe's full width in float32, at its decode batches and
+prompt lengths: against a dense per-token formulation on the card, and at
+decode against its own CPU result.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
 an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
@@ -26,6 +31,7 @@ parent comparison).
 This file imports no jax, so it runs where only PyTorch is installed.
 """
 import ctypes
+import dataclasses
 import os
 import subprocess
 from pathlib import Path
@@ -42,6 +48,9 @@ from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.ref import (flash_decode_int8_ref, flash_decode_ref,
                                      mamba_scan_ref, wkv6_ref)
 from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.configs import get_config
+from repro_torch.models import moe
+from repro_torch.models.common import rms_norm, silu
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -96,6 +105,7 @@ def _n_sm():
     (1, 4, 1, 128, 513), (16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),
     (16, 32, 8, 128, 1024), (2, 32, 2, 120, 77),
     (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024),
+    (16, 16, 8, 64, 256), (4, 16, 8, 64, 1024),
     (2, 16, 4, 256, 300), (1, 16, 1, 256, 2000), (2, 24, 8, 80, 3000),
     (3, 16, 2, 8, 50), (16, 32, 8, 128, 8192), (2, 8, 8, 32, 20000),
 ])
@@ -489,3 +499,58 @@ def test_scans_bit_identical_and_graph_replay_on_card(gen, S):
         torch.cuda.synchronize()
         eager = fn(*args)
         assert all(torch.equal(x, z) for x, z in zip(out, eager))
+
+
+# ---- the MoE block at granite-moe's width ---------------------------------
+
+# chip_smoke.py's MOE_REL_BOUND: the two formulations share the f32 routing
+# and differ in the order of their f32 sums (about 1e-6 of max|y|)
+MOE_REL = 1e-4
+
+
+def _dense_moe(p, cfg, x):
+    """Every expert on every token, then per token the gate-weighted sum
+    over its top-k, an assignment kept when fewer than C earlier tokens
+    chose the same expert.  Returns (y, experts (T, k))."""
+    B, S, d = x.shape
+    T, E, k = B * S, cfg.n_experts, cfg.top_k
+    h = rms_norm(x, p["norm"], cfg.norm_eps).reshape(T, d)
+    probs = torch.softmax(h @ p["router"], dim=-1)
+    gates, idx = probs.topk(k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    chose = torch.zeros(T, E, dtype=torch.long, device=x.device) \
+        .scatter_(1, idx, 1)
+    C = T if S == 1 else max(int(T * k / E * cfg.capacity_factor), 1)
+    keep = (chose.cumsum(0) - chose).gather(1, idx) < C
+    out = torch.bmm(silu(torch.einsum("td,edf->etf", h, p["w_gate"]))
+                    * torch.einsum("td,edf->etf", h, p["w_up"]),
+                    p["w_down"])
+    picked = out[idx, torch.arange(T, device=x.device)[:, None]]
+    return (picked * (gates * keep)[..., None]).sum(1).reshape(B, S, d), idx
+
+
+@pytest.mark.parametrize("B,S", [(16, 1), (4, 1), (1, 37), (1, 1000)])
+def test_apply_moe_on_card(gen, B, S):
+    """granite-moe's MoE block in float32 on the card: within MOE_REL of
+    max|y| of the dense formulation on the card (the keep mask decides the
+    prefills, which drop at capacity); at decode also of the port's own CPU
+    result on every token whose top-k set the two devices agree on (a
+    router near-tie may flip one in the last bit)."""
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              dtype="float32")
+    p = moe.init_moe(gen, cfg, torch.device("cuda"))
+    p["norm"] += 0.1 * torch.randn(cfg.d_model, generator=gen, device="cuda")
+    x = 3 * torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+    y = moe.apply_moe(p, cfg, x) - x
+    want, idx = _dense_moe(p, cfg, x)
+    scale = float(want.abs().max())
+    assert float((y - want).abs().max()) / scale <= MOE_REL
+    if S > 1:
+        return
+    pc = {key: t.cpu() for key, t in p.items()}
+    yc = moe.apply_moe(pc, cfg, x.cpu()) - x.cpu()
+    _, idx_cpu = _dense_moe(pc, cfg, x.cpu())
+    same = (idx.sort(-1).values.cpu() == idx_cpu.sort(-1).values).all(-1)
+    assert int(same.sum()) >= B - 1
+    d = (y.cpu() - yc).reshape(B, -1)[same]
+    assert float(d.abs().max()) / scale <= MOE_REL
