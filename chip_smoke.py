@@ -107,14 +107,50 @@ Phases, in order; any failure exits non-zero:
   9. serve    `run_policies` for granite as in phase 5: flash_decode
               launches = 24 x its decode steps, no other kernel, and the
               same decode steps as llama31-8b's on the same traffic;
+  10. pressure  the serving layer's eviction paths at full width over the
+              weights of phases 4, 6 and 8, in the pools phase 3 checks
+              (short 16 x 256, long 4 x 1024):
+              10a llama31-8b, PRESSURE_REQUESTS demo requests with the
+                  median predicted output and Poisson arrivals, routed by
+                  fleetopt; the short pool evicts at its window
+                  (`evict_on_overflow`), both respect arrivals; its
+                  `overflowed` re-served in the long pool;
+              10b llama31-8b, then zamba2-2.7b: one short pool full of
+                  ragged requests, PREEMPT_STEPS steps, then
+                  shrink(PREEMPT_KEEP), drained (every re-admission
+                  re-prefills, through mamba_scan for zamba2);
+              10c semantic escalation: granite-moe-1b-a400m as the small
+                  rung (short pool), llama31-8b as the large (long pool),
+                  SERVE's demo requests with 10a's arrival process, both
+                  pools respecting arrivals, the misroute seed the first
+                  whose analytical replay escalates; the small pool's
+                  `escalated` re-served in the large.
+              Each run: every count set to 0 just before and read just
+              after, flash_decode = attention blocks x decode steps of
+              each model's engines, mamba_scan = 45 x zamba2's
+              admissions, no other kernel; every request completes exactly
+              once, and the run's eviction path is taken; the same traffic
+              through analytical-mode engines with each model's streamed
+              parameters leaves equal meters, stats(), decode steps and
+              per-request times, pools and counts; in 10a and 10c the
+              metered tokens equal the completed requests' n_generated - 1
+              (evicted tokens backed out); and after every admission into
+              a recycled slot (`Recycled`): its K/V rows and O(1) state
+              bit-equal to a fresh prefill, one decode step of the slab
+              kernel vs plain (llama bf16 at LOGIT_REL_BOUND; zamba2 and
+              granite on float32 copies, at LOGIT_REL_BOUND and
+              MOE_LOGIT_REL_BOUND's float32 bound) and with every row past
+              the positions set to +-999 bit-equal, its launches taken
+              back out of the counts;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
 in phase 6 are each the median of 3 after one warm-up prefill at the same
 length; flash_decode_int8, which no serve path
 launches, over the four MAIN shapes equally, with its device_ms and the
-share of its bound, its launches those of phase 4) and, last, the device
-line.
+share of its bound, its launches those of phase 4; launches count phases
+5, 7, 9 and 10, the scans' means weight phase 7's prompt lengths) and,
+last, the device line.
 
 Needs one CUDA card; exits non-zero without one.  float32 matmuls stay full
 precision: TF32 is turned off for matmuls and cuDNN.
@@ -145,10 +181,14 @@ from repro_torch.kernels import wkv6 as WK  # noqa: E402
 from repro_torch.kernels.ref import (flash_decode_int8_ref,  # noqa: E402
                                      flash_decode_ref, mamba_scan_ref,
                                      wkv6_ref)
+from repro_torch.core.profiles import H100_LLAMA70B  # noqa: E402
+from repro_torch.core.workloads import WORKLOADS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.common import rms_norm, silu  # noqa: E402
+from repro_torch.serving import (ContextRouter, PoolEngine,  # noqa: E402
+                                 Request, RouterPolicy, sample_trace)
 
 flash_decode, mamba_scan, wkv6 = FD.flash_decode, MS.mamba_scan, WK.wkv6
 flash_decode_int8, quantize_kv = FD8.flash_decode_int8, FD8.quantize_kv
@@ -252,6 +292,22 @@ MOE_TIMED_LAYERS = 4                    # 4 x 100 MB of expert weights
 # 5.2e-6 with no routing difference, so 1e-3 leaves a 200-fold margin; the
 # skipped tile gives 1.3-1.5 in both.
 MOE_LOGIT_REL_BOUND = {"bfloat16": LOGIT_REL_BOUND, "float32": 1e-3}
+# Phase 10 ("pressure").  10a: the smallest azure-conv demo stream
+# (serve.demo_requests at SERVE's window_long) in which a request that
+# FleetOpt admits to the short pool on its predicted output (the median
+# output) outgrows the short window: analytical replays of the streams of
+# 16-40 requests give the first eviction at 25.  Poisson arrivals at
+# ARRIVAL_RATE (mean gap 20 ms, two to three metered decode steps).
+PRESSURE_REQUESTS = 25
+ARRIVAL_RATE = 50.0
+SHORT_POOL = dict(window=256, n_slots=16)   # the pools phase 3 checks
+LONG_POOL = dict(window=1024, n_slots=4)
+# 10b: ragged requests filling one short pool, PREEMPT_STEPS decode steps,
+# then shrink to PREEMPT_KEEP live requests
+PREEMPT_REQUESTS, PREEMPT_STEPS, PREEMPT_KEEP = 20, 6, 4
+# 10c: the semantic ladder's small-rung boundary on predicted total, the
+# quality monitor's detection latency and the classifier's error rate
+SEMANTIC = dict(boundary=128.0, detect_tokens=32, misroute_rate=0.25)
 COUNTED = {"flash_decode": flash_decode,
            "flash_decode_int8": flash_decode_int8, "mamba_scan": mamba_scan,
            "wkv6": wkv6}
@@ -1352,6 +1408,394 @@ def phase_serve(cfg, params):
     return counts, by_shape, by_len, per_prefill, steps
 
 
+# ---- phase 10: serving under pressure ---------------------------------------
+
+def timed(reqs):
+    """`reqs` arriving on `sample_trace`'s Poisson process."""
+    trace = sample_trace(WORKLOADS[SERVE["workload"]], len(reqs), seed=0,
+                         arrival_rate=ARRIVAL_RATE)
+    for r, (_, _, t) in zip(reqs, trace):
+        r.arrival_time = t
+    return reqs
+
+
+def traffic_overflow(vocab):
+    """10a: the demo stream, each request predicting the median output,
+    with timed arrivals."""
+    reqs = serve.demo_requests(vocab, SERVE["workload"], PRESSURE_REQUESTS,
+                               SERVE["window_long"])
+    pred = int(np.median([r.max_new_tokens for r in reqs]))
+    for r in reqs:
+        r.predicted_output = pred
+    return timed(reqs)
+
+
+def traffic_preempt(vocab):
+    """10b: ragged prompts of 4-159 tokens, 8-63 new tokens each."""
+    rng = np.random.default_rng(10)
+    lens = rng.integers((4, 8), (160, 64), size=(PREEMPT_REQUESTS, 2))
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(p)),
+                    max_new_tokens=int(o)) for i, (p, o) in enumerate(lens)]
+
+
+def traffic_semantic(vocab):
+    """10c: SERVE's demo stream, token ids below both models' vocabs, with
+    timed arrivals (so that the small pool recycles slots)."""
+    return timed(serve.demo_requests(vocab, SERVE["workload"],
+                                     SERVE["requests"], SERVE["window_long"]))
+
+
+def relay(first, outbox, second):
+    """Drain `first`, submit what left it through `outbox`, drain `second`."""
+    first.run_until_drained()
+    for r in getattr(first, outbox):
+        second.submit(r)
+    second.run_until_drained()
+
+
+def run_overflow(make, reqs):
+    pools = {"short": make("short", **SHORT_POOL, evict_on_overflow=True,
+                           respect_arrival=True),
+             "long": make("long", **LONG_POOL, respect_arrival=True)}
+    router = ContextRouter(pools, RouterPolicy(
+        kind="fleetopt", b_short=SERVE["b_short"], gamma=2.0,
+        ladder=[("short", float(SHORT_POOL["window"])),
+                ("long", math.inf)]))
+    for r in reqs:
+        router.route(r)
+    relay(pools["short"], "overflowed", pools["long"])
+    return pools
+
+
+def run_preempt(make, reqs):
+    eng = make("short", **SHORT_POOL)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(PREEMPT_STEPS):
+        eng.step()
+    eng.shrink(PREEMPT_KEEP)
+    eng.run_until_drained()
+    return {"short": eng}
+
+
+def run_semantic(make, reqs, seed):
+    pools = {"small": make("small", **SHORT_POOL, respect_arrival=True),
+             "large": make("large", **LONG_POOL, respect_arrival=True)}
+    router = ContextRouter(pools, RouterPolicy(
+        kind="semantic", b_short=int(SEMANTIC["boundary"]),
+        flip=("small", "large"), detect_tokens=SEMANTIC["detect_tokens"],
+        misroute_rate=SEMANTIC["misroute_rate"], misroute_seed=seed,
+        ladder=[("small", SEMANTIC["boundary"]), ("large", math.inf)]))
+    for r in reqs:
+        router.route(r)
+    relay(pools["small"], "escalated", pools["large"])
+    return pools
+
+
+def analytical(streamed):
+    """Engine factory of analytical-mode twins: no model, the streamed
+    parameters of each role's model."""
+    def make(role, **kw):
+        return PoolEngine(None, None, profile=H100_LLAMA70B, name=role,
+                          streamed_params=streamed[role], **kw)
+    return make
+
+
+def escalating_seed(reqs_of, streamed):
+    """The first misroute seed whose analytical replay of 10c escalates a
+    request out of the small pool (a true-large request flipped small
+    that reaches the detection latency inside the small window)."""
+    for seed in range(1000):
+        pools = run_semantic(analytical(streamed), reqs_of(), seed)
+        if pools["small"].escalated:
+            return seed
+    raise SystemExit("no misroute seed escalates a request in 10c")
+
+
+def widen(cache):
+    """A float32 copy of a decode cache (bf16 K/V widen exactly)."""
+    return {n: {k: t.to(torch.float32, copy=True) for k, t in c.items()}
+            for n, c in cache.items()}
+
+
+class Recycled:
+    """Phase 10's recycled-slot checks over one model's engines.  `watch`
+    wraps an engine's
+    `_admit`; after an admission pass that put a request into a slot that
+    held one before, it holds (a) that slot's K/V rows [0, plen) and O(1)
+    state, as the splice wrote them, bit-equal to a fresh batch-1 prefill
+    of the same prompt; (b) one decode step over the whole slab through
+    the kernel against the plain attention on the engine's own cache
+    (bf16, or on float32 copies of the weights and cache when `f32` is
+    given), per active slot within `bound`, a differing top-1 only at a
+    near-tie; (c) the kernel step with every K row past each slot's
+    position overwritten with +999 and V with -999, logits bit-equal.
+    The launches these checks make are taken back out of the counts, and
+    their wall time is kept apart."""
+
+    def __init__(self, cfg, params, bound, f32=None):
+        self.cfg, self.params, self.bound, self.f32 = cfg, params, bound, f32
+        self.slots = self.steps = self.admissions = 0
+        self.kv_unequal, self.kv_max = 0, 0.0
+        self.rel, self.bad, self.masked_unequal = [], 0, 0
+        self.seconds = 0.0
+
+    def watch(self, eng):
+        used = np.zeros(eng.n_slots, bool)
+        real = eng._admit
+
+        def admit():
+            before = list(eng.slots)
+            real()
+            new = [i for i, r in enumerate(eng.slots)
+                   if r is not None and r is not before[i]]
+            self.admissions += len(new)
+            recycled = [i for i in new if used[i]]
+            used[new] = True
+            if recycled:
+                self.check(eng, recycled)
+        eng._admit = admit
+        return eng
+
+    def check(self, eng, recycled):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = {n: fn.launches for n, fn in COUNTED.items()}
+        for i in recycled:
+            prompt = torch.as_tensor(eng.slots[i].prompt[None], device=DEVICE)
+            _, pc = M.forward(self.params, self.cfg, prompt, mode="prefill")
+            for name, slab in eng.cache.items():
+                for key, dst in slab.items():
+                    piece = pc[name][key][:, 0]
+                    if key in ("k", "v"):
+                        t = min(piece.shape[1], dst.shape[2])
+                        got, want = dst[:, i, :t], piece[:, -t:]
+                    else:
+                        got, want = dst[:, i], piece
+                    if not torch.equal(got, want):
+                        self.kv_unequal += 1
+                        self.kv_max = max(self.kv_max, float(
+                            (got.float() - want.float()).abs().max()))
+            self.slots += 1
+        self.decode_twins(eng)
+        for n, fn in COUNTED.items():
+            fn.launches = saved[n]
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+
+    def decode_twins(self, eng):
+        tokens = torch.as_tensor(eng.tokens[:, None], device=DEVICE)
+        pos = eng.pos.copy()
+        rows = np.flatnonzero(eng._active & (eng.prefill_left == 0))
+        a, _ = M.decode_step(self.params, self.cfg, tokens,
+                             clone_cache(eng.cache), pos)
+        if self.f32 is None:
+            x, y = a, M.decode_step(self.params, self.cfg, tokens,
+                                    clone_cache(eng.cache), pos,
+                                    impl="plain")[0]
+        else:
+            cfg32, params32 = self.f32
+            x = M.decode_step(params32, cfg32, tokens, widen(eng.cache),
+                              pos)[0]
+            y = M.decode_step(params32, cfg32, tokens, widen(eng.cache),
+                              pos, impl="plain")[0]
+        rel, _, _, tie_ok = rel_rows(x[rows, 0], y[rows, 0])
+        self.rel.append(max(rel))
+        self.bad += max(rel) > self.bound or not tie_ok
+        masked = clone_cache(eng.cache)
+        past = torch.arange(eng.window, device=DEVICE)[None, :] \
+            >= torch.as_tensor(pos, device=DEVICE)[:, None]
+        for slab in masked.values():
+            if "k" in slab:
+                m = past[None, :, :slab["k"].shape[2], None, None]
+                slab["k"].masked_fill_(m, 999.0)
+                slab["v"].masked_fill_(m, -999.0)
+        c, _ = M.decode_step(self.params, self.cfg, tokens, masked, pos)
+        self.masked_unequal += not torch.equal(a, c)
+        self.steps += 1
+
+    def summary(self):
+        return (f"{self.slots} recycled slots after {self.admissions}"
+                f" admissions: K/V and state vs a fresh prefill unequal in"
+                f" {self.kv_unequal} tensors (max |d| {self.kv_max:.3e},"
+                f" bound: bit-equal); {self.steps} decode steps of the slab,"
+                f" kernel vs plain ({'float32' if self.f32 else 'bfloat16'})"
+                f" max|d|/max|logits| {max(self.rel, default=0.0):.3e}"
+                f" (bound {self.bound}), {self.bad} outside it; rows past"
+                f" each slot's position set to +-999 changed the logits in"
+                f" {self.masked_unequal} of {self.steps} steps")
+
+    def failed(self):
+        return self.kv_unequal or self.bad or self.masked_unequal
+
+
+SCHED = ("rid", "pool", "first_token_time", "finish_time", "n_generated",
+         "preemptions", "escalations", "ready_time")
+
+
+def schedule_of(pools):
+    """What the scheduler decided, per pool: every meter field, stats(),
+    decode steps, and each request's pool, times and counts by list."""
+    out = {}
+    for role, eng in pools.items():
+        meter = {f.name: getattr(eng.meter, f.name)
+                 for f in dataclasses.fields(eng.meter) if f.name != "profile"}
+        lists = {name: [tuple(getattr(r, f) for f in SCHED)
+                        for r in getattr(eng, name)]
+                 for name in ("completed", "overflowed", "escalated")}
+        out[role] = dict(meter=meter, stats=eng.stats(),
+                         decode_steps=eng.decode_steps, **lists)
+    return out
+
+
+def phase_pressure(tag, run, models, n_requests, *, outbox=None,
+                   preempted=False):
+    """One phase-10 run.  `models` maps each role to (cfg, params,
+    Recycled); `run(make)` builds its pools with `make` and drives them.
+    The run goes once through model-mode engines on the card (every count
+    set to 0 just before, read just after) and once through analytical
+    twins with each model's streamed parameters, and is checked as the
+    module docstring's phase 10 says.  Returns the counts, flash_decode
+    launches by shape and the wall without the recycled-slot checks."""
+    def make(role, **kw):
+        cfg, params, recycled = models[role]
+        return recycled.watch(PoolEngine(cfg, params, profile=H100_LLAMA70B,
+                                         name=role, **kw))
+
+    for fn in COUNTED.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pools = run(make)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in COUNTED.items()}
+    checks = list({id(m[2]): m[2] for m in models.values()}.values())
+    check_s = sum(c.seconds for c in checks)
+    streamed = {role: m[0].analytical_spec().streamed_params
+                for role, m in models.items()}
+    twins = run(analytical(streamed))
+    bad = []
+    same = schedule_of(pools) == schedule_of(twins)
+    log(f"  model mode vs analytical mode: meters, stats(), decode steps"
+        f" and per-request pools, times, preemptions and escalations equal:"
+        f" {same}")
+    if not same:
+        bad.append("the model-mode schedule differs from the analytical one")
+    by_shape, want = Counter(), Counter()
+    for role, eng in pools.items():
+        cfg = models[role][0]
+        log(f"    {role} ({cfg.name}) {json.dumps(eng.stats())}")
+        log(f"    {role}: {eng.decode_steps} decode steps,"
+            f" {1e3 * eng.decode_wall_s / max(eng.decode_steps, 1):.2f} ms"
+            f" wall per decode step (batch {eng.n_slots}, window"
+            f" {eng.window}); preempted {eng.preempted}, overflowed"
+            f" {len(eng.overflowed)}, escalated {eng.n_escalated}")
+        for req in eng.completed:
+            if len(req.generated) != req.n_generated or not all(
+                    0 <= t < cfg.vocab for t in req.generated):
+                bad.append(f"request {req.rid}: malformed tokens")
+        if eng.busy:
+            bad.append(f"{role} did not drain")
+        shape = (eng.n_slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                 eng.window)
+        by_shape[shape] += cfg.attn_block_count * eng.decode_steps
+        want["flash_decode"] += cfg.attn_block_count * eng.decode_steps
+    for recycled in checks:
+        cfg = recycled.cfg
+        per_prefill = sum(b.kind == "mamba2" for b in cfg.unit) * cfg.n_repeat
+        want["mamba_scan"] += per_prefill * recycled.admissions
+        log(f"  {cfg.name}: {recycled.summary()}")
+        if recycled.failed():
+            bad.append(f"{cfg.name}: a recycled slot failed its checks")
+    if not sum(c.slots for c in checks):
+        bad.append("no slot was recycled")
+    want = {name: want[name] for name in COUNTED}
+    log(f"  launches {counts}; expected {want}; flash_decode by (B, H, K, D,"
+        f" T) {dict(by_shape)}")
+    if counts != want:
+        bad.append("the launch counts differ from blocks x decode steps /"
+                   " prefills")
+    if not set(by_shape) <= set(SERVE_SHAPES):
+        bad.append(f"shapes {sorted(by_shape)} were not checked in phase 3")
+    done = [r for eng in pools.values() for r in eng.completed]
+    once = sorted(r.rid for r in done) == list(range(n_requests))
+    left = {name: sum(len(getattr(e, name)) for e in pools.values())
+            for name in ("overflowed", "escalated")}
+    n_preempted = sum(e.preempted for e in pools.values())
+    log(f"  every request completed exactly once: {once}; overflowed"
+        f" {left['overflowed']}, escalated {left['escalated']}, preempted"
+        f" {n_preempted}")
+    if not once:
+        bad.append("a request did not complete exactly once")
+    if (outbox and not left[outbox]) or (preempted and not n_preempted):
+        bad.append("no request took the path this run exists for")
+    if outbox:
+        metered = sum(e.meter.tokens for e in pools.values())
+        earned = sum(r.n_generated - 1 for r in done)
+        log(f"  metered tokens over the pools {metered}, sum of n_generated"
+            f" - 1 over the completed requests {earned}")
+        if metered != earned:
+            bad.append("evicted tokens were not backed out of the meters")
+    log(f"  {tag} wall {wall:.1f} s, of which {check_s:.1f} s in the"
+        f" recycled-slot checks")
+    if bad:
+        raise SystemExit(f"phase 10 {tag}: {bad}")
+    return counts, by_shape, wall - check_s
+
+
+def phase_10(llama, zamba2, granite):
+    """10a-10c over the weights of earlier phases.  Returns the launches,
+    flash_decode launches by shape and the serve walls (checks excluded)."""
+    counts, by_shape, walls = Counter(), Counter(), {}
+
+    def add(tag, out):
+        counts.update(out[0])
+        by_shape.update(out[1])
+        walls[tag] = out[2]
+
+    cfg, params = llama
+    llama_check = Recycled(cfg, params, LOGIT_REL_BOUND)
+    log("[10a] overflow migration with timed arrivals, llama31-8b:"
+        f" {PRESSURE_REQUESTS} demo requests, short {SHORT_POOL} evicting"
+        f" at its window, long {LONG_POOL}, Poisson arrivals at"
+        f" {ARRIVAL_RATE}/s")
+    add("10a", phase_pressure(
+        "10a", lambda make: run_overflow(make, traffic_overflow(cfg.vocab)),
+        {"short": (cfg, params, llama_check),
+         "long": (cfg, params, llama_check)},
+        PRESSURE_REQUESTS, outbox="overflowed"))
+    for name, (mcfg, mparams) in (("llama31-8b", llama),
+                                  ("zamba2-2.7b", zamba2)):
+        log(f"[10b] preemption, {name}: {PREEMPT_REQUESTS} ragged requests"
+            f" in {SHORT_POOL}, {PREEMPT_STEPS} steps, shrink({PREEMPT_KEEP})")
+        # zamba2 as phase 6 holds it: kernel vs plain on float32 copies
+        f32 = None if name == "llama31-8b" else to_f32(mcfg, mparams)
+        check = Recycled(mcfg, mparams, LOGIT_REL_BOUND, f32)
+        add(f"10b {name}", phase_pressure(
+            f"10b {name}",
+            lambda make: run_preempt(make, traffic_preempt(mcfg.vocab)),
+            {"short": (mcfg, mparams, check)}, PREEMPT_REQUESTS,
+            preempted=True))
+        del f32, check
+    gcfg, gparams = granite
+    vocab = min(gcfg.vocab, cfg.vocab)
+    streamed = {"small": gcfg.analytical_spec().streamed_params,
+                "large": cfg.analytical_spec().streamed_params}
+    seed = escalating_seed(lambda: traffic_semantic(vocab), streamed)
+    log(f"[10c] semantic escalation: small {gcfg.name} {SHORT_POOL},"
+        f" large {cfg.name} {LONG_POOL}, {SEMANTIC}, misroute_seed {seed}"
+        f" (the first whose analytical replay escalates)")
+    add("10c", phase_pressure(
+        "10c", lambda make: run_semantic(make, traffic_semantic(vocab), seed),
+        {"small": (gcfg, gparams, Recycled(
+            gcfg, gparams, MOE_LOGIT_REL_BOUND["float32"],
+            to_f32(gcfg, gparams))),
+         "large": (cfg, params, Recycled(cfg, params, LOGIT_REL_BOUND))},
+        SERVE["requests"], outbox="escalated"))
+    return counts, by_shape, walls
+
+
 def load_model(name):
     cfg = get_config(name)
     t0 = time.perf_counter()
@@ -1403,8 +1847,7 @@ def main() -> int:
     counts, by_shape, _, _, steps = phase_serve(cfg, params)
     launches.update(counts)
     fd_launches.update(by_shape)
-    del params
-    torch.cuda.empty_cache()
+    llama = (cfg, params)       # phase 10 serves these weights again
 
     scan_rows, scan_launches, scan_err_max = {}, {}, {}
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -1417,6 +1860,8 @@ def main() -> int:
         counts, by_shape, by_len, per_prefill, _ = phase_serve(cfg, params)
         launches.update(counts)
         fd_launches.update(by_shape)
+        if name == "zamba2-2.7b":
+            zamba2 = (cfg, params)
         del params
         torch.cuda.empty_cache()
         log(f"  {kind} at every prompt length the serve phase prefilled"
@@ -1442,13 +1887,21 @@ def main() -> int:
     counts, by_shape, _, _, moe_steps = phase_serve(cfg, params)
     launches.update(counts)
     fd_launches.update(by_shape)
-    del params
-    torch.cuda.empty_cache()
     log(f"  {moe_steps} decode steps, as llama31-8b's {steps} (the same"
         f" traffic gives the same lengths)")
     if moe_steps != steps:
         raise SystemExit("granite's serve took other decode steps than"
                          " llama31-8b's on the same traffic")
+    granite = (cfg, params)
+    del params
+    t10 = time.perf_counter()
+    counts, by_shape, walls = phase_10(llama, zamba2, granite)
+    launches.update(counts)
+    fd_launches.update(by_shape)
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s; serve walls without"
+        f" the recycled-slot checks {json.dumps(walls)}")
+    del llama, zamba2, granite
+    torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -48,6 +48,21 @@ class PowerModel:
                    quality=quality or chip.quality)
 
 
-# H100: fitted to ML.ENERGY v3.0 / G2G Fig. 2 (HIGH).
+# --- Appendix A, Table 7 ------------------------------------------------
+# H100: fitted to ML.ENERGY v3.0 / G2G Fig. 2 (HIGH).  Others projected.
+# Appendix A lists x0 = 6.8 for B200/GB200, but the Table 1 B200 P_sat
+# column is only consistent with x0 ~ 4.45; the table is followed.
 H100_POWER = PowerModel("H100-SXM5", p_idle_w=300.0, p_nom_w=600.0, k=1.0,
                         x0=4.2, quality="HIGH")
+H200_POWER = PowerModel("H200-SXM", p_idle_w=300.0, p_nom_w=600.0, k=1.0,
+                        x0=4.2, quality="FAIR")
+B200_POWER = PowerModel("B200-SXM", p_idle_w=430.0, p_nom_w=860.0, k=1.0,
+                        x0=4.45, quality="FAIR")
+GB200_POWER = PowerModel("GB200-NVL", p_idle_w=516.0, p_nom_w=1032.0, k=1.0,
+                         x0=4.45, quality="FAIR")
+TPU_V5E_POWER = PowerModel("TPU-v5e", p_idle_w=0.43 * 215.0,
+                           p_nom_w=0.86 * 215.0, k=1.0, x0=4.2,
+                           quality="FAIR")
+
+POWER_MODELS = {m.name: m for m in (H100_POWER, H200_POWER, B200_POWER,
+                                    GB200_POWER, TPU_V5E_POWER)}

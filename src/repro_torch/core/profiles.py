@@ -6,7 +6,9 @@ A profile bundles:
   * the KV token capacity -> n_max(window)    (Eq. 3)
 
 `ManualProfile` carries calibrated constants: the paper's HIGH-quality
-H100 + Llama-3.1-70B profile that meters every serving engine.
+H100 + Llama-3.1-70B profile that meters every serving engine, and the
+Table-1 projections of the same model on the other generations
+(`GENERATION_PROFILES`).
 `computed_profile` derives the same quantities from first principles
 (ChipSpec x ModelSpec), as the MoE lever of `core.moe` needs.
 """
@@ -18,9 +20,10 @@ from typing import Optional
 
 import numpy as np
 
-from .hardware import H100, ChipSpec
-from .modelspec import ModelSpec
-from .power import H100_POWER, PowerModel
+from .hardware import B200, GB200, H100, H200, TPU_V5E, ChipSpec
+from .modelspec import LLAMA31_70B, ModelSpec
+from .power import (B200_POWER, GB200_POWER, H100_POWER, H200_POWER,
+                    TPU_V5E_POWER, PowerModel)
 from .roofline import DecodeRoofline
 
 
@@ -106,3 +109,46 @@ H100_LLAMA70B = ManualProfile(
     chip=H100, power_model=H100_POWER,
     roofline=DecodeRoofline(w_ms=6.72, h0_ms=0.139, l_calib=8192),
     kv_token_capacity=float(2 ** 20), tp=8)
+
+# B200 projection: capacity ratio 2.6235x (Table 1 column 5), W = 2.95 ms,
+# H0 reverse-derived 0.067 ms.  FAIR quality, +-20%.
+B200_LLAMA70B = ManualProfile(
+    name="Llama-3.1-70B@B200-SXM(TP8,projected)",
+    chip=B200, power_model=B200_POWER,
+    roofline=DecodeRoofline(w_ms=2.95, h0_ms=0.067, l_calib=8192),
+    kv_token_capacity=float(2 ** 20) * 2.6235, tp=8)
+
+# H200: same power envelope as H100, 1.41x bandwidth -> W = 4.76 ms,
+# capacity scaled by usable-memory ratio (141-17.5)/(80*0.965-17.5) ~ 2.0.
+H200_LLAMA70B = ManualProfile(
+    name="Llama-3.1-70B@H200-SXM(TP8,projected)",
+    chip=H200, power_model=H200_POWER,
+    roofline=DecodeRoofline(w_ms=4.76, h0_ms=0.0985, l_calib=8192),
+    kv_token_capacity=float(2 ** 20) * 2.0, tp=8)
+
+GB200_LLAMA70B = ManualProfile(
+    name="Llama-3.1-70B@GB200-NVL(TP8,projected)",
+    chip=GB200, power_model=GB200_POWER,
+    roofline=DecodeRoofline(w_ms=2.95, h0_ms=0.067, l_calib=8192),
+    kv_token_capacity=float(2 ** 20) * 2.95, tp=8)
+
+# Fleet-analysis B200 profile per the paper's §4.1 method: scaled from the
+# H100 by the 2.62x KV-budget ratio; W improves with bandwidth but the
+# per-token KV-scan coefficient H0 is not rescaled (only the capacity is).
+B200_LLAMA70B_FLEET = ManualProfile(
+    name="Llama-3.1-70B@B200-SXM(TP8,fleet-scaled)",
+    chip=B200, power_model=B200_POWER,
+    roofline=DecodeRoofline(w_ms=2.95, h0_ms=0.139, l_calib=8192),
+    kv_token_capacity=float(2 ** 20) * 2.6235, tp=8)
+
+# The same 70B served on a TPU-v5e slice (16 chips, model axis).
+V5E_LLAMA70B = computed_profile(LLAMA31_70B, TPU_V5E, TPU_V5E_POWER, tp=16,
+                                name="Llama-3.1-70B@TPU-v5e(16-chip)")
+
+GENERATION_PROFILES = {
+    "H100-SXM5": H100_LLAMA70B,
+    "H200-SXM": H200_LLAMA70B,
+    "B200-SXM": B200_LLAMA70B,
+    "GB200-NVL": GB200_LLAMA70B,
+    "TPU-v5e": V5E_LLAMA70B,
+}

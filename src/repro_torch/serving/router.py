@@ -3,14 +3,25 @@
 `ContextRouter` fronts a set of PoolEngines and routes each request through
 an **ordered admission ladder**: (role, boundary) pairs with strictly
 ascending boundaries, the last infinite.  A request goes to the first role
-whose boundary covers its routing metric.  The three §4 topologies are
-instances of the ladder:
+whose boundary covers its routing metric.  The §4 topologies and the
+§10.3 K >= 3 generalisation are instances of the ladder:
 
   homo      — [(only, inf)]: one pool, the long window.
   two_pool  — [(short, B_short), (long, inf)] on the conservative metric
               prompt + p99(output) (no overflow handling).
   fleetopt  — [(short, gamma * B_short), (long, inf)] on predicted total;
               the short pool serves window gamma * B_short.
+  multipool — an explicit K-entry ladder of geometric windows.
+  semantic  — §5.1 model-heterogeneous routing: a [small @ B_short,
+              large @ inf] ladder whose rungs serve *different models*.
+              The classifier is the ladder metric degraded by
+              `misroute_rate`: each decision flips with that probability,
+              deterministically per request id.  A true-short request
+              flipped large is just served inefficiently; a true-large one
+              flipped small is tagged `escalate_at = detect_tokens`, and
+              the small-model engine evicts it after that many decode
+              tokens into its `escalated` list, to be re-served from
+              scratch by the large pool, its small-pool tokens backed out.
 
 The router decides which segment of the logistic P(b) curve each engine
 occupies — the mechanism behind the fleet-level 2.5x (paper §4.2).
@@ -21,7 +32,18 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+from ..core.routing import ESCALATION_DETECT_TOKENS
+from ..core.topospec import SEMANTIC_KINDS  # noqa: F401  (re-export)
 from .request import Request
+
+_HASH_A = 2654435761          # Knuth multiplicative hash (mod 2^32)
+
+
+def _misroute_u(rid: int, seed: int) -> float:
+    """Deterministic per-request uniform in [0, 1) for the misroute draw:
+    a pure function of (rid, seed), so routing is order-independent and a
+    higher misroute rate flips a superset of a lower rate's requests."""
+    return ((rid * _HASH_A + seed * 0x9E3779B9) % (1 << 32)) / float(1 << 32)
 
 
 @dataclasses.dataclass
@@ -37,6 +59,21 @@ class RouterPolicy:
     # routing metric: "predicted_total" (prompt + E[output]) or
     # "prompt_plus_p99" (prompt + p99_output — conservative two_pool)
     metric_kind: str = "predicted_total"
+    # misroute channel: the (small, large) role pair the classifier's
+    # decisions flip between; None disables flipping entirely
+    flip: Optional[Tuple[str, str]] = None
+    # classifier error rate, detection latency (decode tokens the small
+    # model emits before a misroute escalates) and the seed of the
+    # deterministic per-request misroute draw
+    misroute_rate: float = 0.0
+    detect_tokens: int = ESCALATION_DETECT_TOKENS
+    misroute_seed: int = 0
+    # the topology description this policy was compiled from, if any
+    spec: Optional[object] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def is_semantic(self) -> bool:
+        return self.flip is not None
 
     def admission_ladder(self) -> List[Tuple[str, float]]:
         """Ordered (role, boundary) pairs; route to the first role whose
@@ -74,9 +111,29 @@ class ContextRouter:
         m = self.policy.metric(req)
         for name, boundary in self.policy.admission_ladder():
             if m <= boundary:
+                name = self._semantic_flip(req, name)
                 self.pools[name].submit(req)
                 return name
         raise AssertionError(f"no ladder entry admits metric {m}")
+
+    def _semantic_flip(self, req: Request, nominal: str) -> str:
+        """The classifier's error channel: flip the decision with
+        probability `misroute_rate` (deterministic per request).  A
+        true-large request flipped into the small-model pool is tagged for
+        escalation after `detect_tokens` of decode."""
+        pol = self.policy
+        if not (pol.flip is not None and pol.misroute_rate > 0.0):
+            return nominal
+        if _misroute_u(req.rid, pol.misroute_seed) >= pol.misroute_rate:
+            return nominal
+        small, large = pol.flip
+        if nominal not in (small, large):
+            return nominal
+        req.misrouted = True
+        if nominal == large:
+            req.escalate_at = pol.detect_tokens
+            return small
+        return large
 
     def run(self, requests: List[Request], *, max_iters: int = 100_000
             ) -> Dict[str, dict]:

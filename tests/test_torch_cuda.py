@@ -23,6 +23,11 @@ The MoE block (no kernel of its own: plain products over the sort-based
 dispatch) at granite-moe's full width in float32, at its decode batches and
 prompt lengths: against a dense per-token formulation on the card, and at
 decode against its own CPU result.
+Recycled slots of a serving engine at llama31-8b's and zamba2-2.7b's full
+width, reduced depth: short prompts admitted into slots that served longer
+sequences hold K/V rows and O(1) state bit-equal to a fresh prefill, and
+the rows past each slot's position, overwritten with +-999, leave a decode
+step's logits bit-equal.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
 an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
@@ -49,8 +54,11 @@ from repro_torch.kernels.ref import (flash_decode_int8_ref, flash_decode_ref,
                                      mamba_scan_ref, wkv6_ref)
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.configs import get_config
+from repro_torch.core.profiles import H100_LLAMA70B
+from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.models.common import rms_norm, silu
+from repro_torch.serving import PoolEngine, Request
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -554,3 +562,60 @@ def test_apply_moe_on_card(gen, B, S):
     assert int(same.sum()) >= B - 1
     d = (y.cpu() - yc).reshape(B, -1)[same]
     assert float(d.abs().max()) / scale <= MOE_REL
+
+
+# ---- recycled slots of a serving engine -----------------------------------
+
+@pytest.mark.parametrize("arch,n_repeat", [("llama31-8b", 2),
+                                           ("zamba2-2.7b", 1)])
+def test_recycled_slots_on_card(gen, arch, n_repeat):
+    """Four 200-token requests served to completion, then four prompts of
+    5-60 tokens admitted into the same slots: each slot's K/V rows
+    [0, plen) and O(1) state equal a fresh batch-1 prefill bit for bit,
+    the rows the longer sequences left behind are still there, and a
+    decode step through flash_decode gives bit-equal logits when every row
+    past each slot's position holds +999 in K and -999 in V."""
+    cfg = dataclasses.replace(get_config(arch), n_repeat=n_repeat)
+    params = M.init_params(cfg, gen, "cuda")
+    eng = PoolEngine(cfg, params, window=256, n_slots=4,
+                     profile=H100_LLAMA70B)
+    for i in range(4):
+        eng.submit(Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab, (200,), generator=gen, device="cuda").cpu().numpy(),
+            max_new_tokens=8))
+    eng.run_until_drained()
+    short = [Request(rid=4 + i, prompt=torch.randint(
+        0, cfg.vocab, (n,), generator=gen, device="cuda").cpu().numpy(),
+        max_new_tokens=8) for i, n in enumerate((5, 17, 33, 60))]
+    for r in short:
+        eng.submit(r)
+    with torch.inference_mode():
+        eng._admit()
+        stale = 0
+        for slot, r in enumerate(eng.slots):
+            _, pc = M.forward(params, cfg, torch.as_tensor(
+                r.prompt[None], device="cuda"), mode="prefill")
+            for name, slab in eng.cache.items():
+                for key, dst in slab.items():
+                    want = pc[name][key][:, 0]
+                    if key in ("k", "v"):
+                        assert torch.equal(dst[:, slot, :r.prompt_len], want)
+                        stale += bool(dst[:, slot, r.prompt_len:207]
+                                      .abs().sum() > 0)
+                    else:
+                        assert torch.equal(dst[:, slot], want)
+        assert stale == 4 * 2 * cfg.attn_block_count // n_repeat
+        tokens = torch.as_tensor(eng.tokens[:, None], device="cuda")
+        past = torch.arange(eng.window, device="cuda")[None, :] \
+            >= torch.as_tensor(eng.pos, device="cuda")[:, None]
+        masked = {n: {k: t.clone() for k, t in c.items()}
+                  for n, c in eng.cache.items()}
+        for slab in masked.values():
+            if "k" in slab:
+                slab["k"].masked_fill_(past[None, :, :, None, None], 999.0)
+                slab["v"].masked_fill_(past[None, :, :, None, None], -999.0)
+        a, _ = M.decode_step(params, cfg, tokens, {
+            n: {k: t.clone() for k, t in c.items()}
+            for n, c in eng.cache.items()}, eng.pos)
+        b, _ = M.decode_step(params, cfg, tokens, masked, eng.pos)
+    assert torch.isfinite(a).all() and torch.equal(a, b)

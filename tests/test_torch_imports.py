@@ -37,7 +37,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.serving.models, "
+            "repro_torch.core.fleet, repro_torch.core.routing, "
+            "repro_torch.core.topospec; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

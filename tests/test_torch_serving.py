@@ -14,14 +14,24 @@ import numpy as np
 import pytest
 
 from repro.configs import get_config as jax_get_config
+from repro.core import fleet as JF
+from repro.core import hardware as JH
+from repro.core import power as JPW
 from repro.core import profiles as JP
+from repro.core import routing as JR
+from repro.core import topospec as JT
 from repro.core import workloads as JW
 from repro.launch import serve as jax_serve
 from repro.models import model as JM
 from repro import serving as JS
 from repro_torch.configs import get_config
+from repro_torch.core import hardware as H
+from repro_torch.core import power as PW
 from repro_torch.core import profiles as P
 from repro_torch.core import workloads as W
+from repro_torch.core.fleet import PREFILL_MFU
+from repro_torch.core.routing import ESCALATION_DETECT_TOKENS
+from repro_torch.core.topospec import SEMANTIC_KINDS
 from repro_torch.launch import serve
 from repro_torch.models.convert import convert_params
 from repro_torch import serving as PS
@@ -221,16 +231,44 @@ def test_energy_meter_matches_reference_meter():
 
 
 def test_analytical_copies_equal_reference():
-    assert dataclasses.asdict(P.H100_LLAMA70B) \
-        == dataclasses.asdict(JP.H100_LLAMA70B)
+    assert sorted(H.CHIPS) == sorted(JH.CHIPS)
+    for name, chip in H.CHIPS.items():
+        assert dataclasses.asdict(chip) == dataclasses.asdict(JH.CHIPS[name])
+        assert (chip.p_idle_w, chip.p_nom_w) \
+            == (JH.CHIPS[name].p_idle_w, JH.CHIPS[name].p_nom_w)
+    assert sorted(PW.POWER_MODELS) == sorted(JPW.POWER_MODELS)
+    for name, pm in PW.POWER_MODELS.items():
+        assert dataclasses.asdict(pm) \
+            == dataclasses.asdict(JPW.POWER_MODELS[name])
+    profiles = dict(P.GENERATION_PROFILES,
+                    fleet=P.B200_LLAMA70B_FLEET)
+    jprofiles = dict(JP.GENERATION_PROFILES,
+                     fleet=JP.B200_LLAMA70B_FLEET)
+    assert sorted(profiles) == sorted(jprofiles)
     b = np.array([0, 0.5, 1, 3, 16, 18.4, 128, 1e4])
-    np.testing.assert_array_equal(P.H100_LLAMA70B.power_model.power_w(b),
-                                  JP.H100_LLAMA70B.power_model.power_w(b))
     n, L = np.array([1, 4, 64, 256]), np.array([1.0, 512, 8192, 1e5])
-    np.testing.assert_array_equal(P.H100_LLAMA70B.roofline.tau_ms(n, L),
-                                  JP.H100_LLAMA70B.roofline.tau_ms(n, L))
-    for w in (1, 48, 1024, 8192, 2 ** 21):
-        assert P.H100_LLAMA70B.n_max(w) == JP.H100_LLAMA70B.n_max(w)
+    for name, prof in profiles.items():
+        jprof = jprofiles[name]
+        assert dataclasses.asdict(prof) == dataclasses.asdict(jprof)
+        np.testing.assert_array_equal(prof.power_model.power_w(b),
+                                      jprof.power_model.power_w(b))
+        np.testing.assert_array_equal(prof.roofline.tau_ms(n, L),
+                                      jprof.roofline.tau_ms(n, L))
+        for w in (1, 48, 1024, 8192, 2 ** 21):
+            assert prof.n_max(w) == jprof.n_max(w)
+    for kw in ({}, dict(peak_rate=40.0, day_s=120.0)):
+        d, jd = W.DiurnalProfile(**kw), JW.DiurnalProfile(**kw)
+        t = np.linspace(0.0, 3 * d.day_s, 97)
+        assert (d.swing, d.mean_rate) == (jd.swing, jd.mean_rate)
+        np.testing.assert_array_equal(d.rate_at(t), jd.rate_at(t))
+        np.testing.assert_array_equal(d.cumulative(t), jd.cumulative(t))
+        np.testing.assert_array_equal(
+            d.sample_arrivals(d.day_s / 50, seed=2),
+            jd.sample_arrivals(jd.day_s / 50, seed=2))
+    assert dataclasses.asdict(W.AZURE_DIURNAL) \
+        == dataclasses.asdict(JW.AZURE_DIURNAL)
+    assert (PREFILL_MFU, ESCALATION_DETECT_TOKENS, SEMANTIC_KINDS) \
+        == (JF.PREFILL_MFU, JR.ESCALATION_DETECT_TOKENS, JT.SEMANTIC_KINDS)
     assert sorted(W.WORKLOADS) == sorted(JW.WORKLOADS)
     for name, wl in W.WORKLOADS.items():
         for n, seed in ((16, 0), (1000, 3)):
