@@ -142,6 +142,30 @@ Phases, in order; any failure exits non-zero:
               MOE_LOGIT_REL_BOUND's float32 bound) and with every row past
               the positions set to +-999 bit-equal, its launches taken
               back out of the counts;
+  11. fleetscope  FleetScope (serving.telemetry) on the card: 10a's and
+              10c's traffic served again at full width with every
+              model-mode engine traced by `attach_trace` into a
+              TraceRecorder at level "detail" (11a llama31-8b fleetopt,
+              11b granite small / llama large), and through analytical
+              twins traced alike; counts set to 0 just before, read just
+              after.  Each run: golden streams, event counts and every
+              pool's energy by phase equal the analytical replay's
+              exactly; the schedule (meters, stats(), decode steps,
+              per-request times) equals both the replay's and phase 10's
+              untraced run's; the launches equal phase 10's for the same
+              traffic (tracing adds none); the charge channel reconciles
+              with the meters within 1e-9 relative in every phase; no
+              meter breaks `conservation_violations`; exactly one overflow
+              (11a) or one escalate event per escalated request (11b), the
+              same requests phase 10 evicted.  The traced wall per decode
+              step is printed beside phase 10's untraced one (reported,
+              not gated), and the timeline and Perfetto document of each
+              model-mode run are built, the document written to
+              build/chip_smoke/.  11c (host): the port's FleetSim, traced
+              at level detail, on the unconstrained azure-conv fleetopt
+              cell of benchmarks/results/fleet_sim.json (H100 Llama-70B
+              profile, 1000 requests, seed 0), its row equal to the
+              committed one, reconciled within 1e-9 and conserving;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -149,7 +173,7 @@ in phase 6 are each the median of 3 after one warm-up prefill at the same
 length; flash_decode_int8, which no serve path
 launches, over the four MAIN shapes equally, with its device_ms and the
 share of its bound, its launches those of phase 4; launches count phases
-5, 7, 9 and 10, the scans' means weight phase 7's prompt lengths) and,
+5, 7, 9, 10 and 11, the scans' means weight phase 7's prompt lengths) and,
 last, the device line.
 
 Needs one CUDA card; exits non-zero without one.  float32 matmuls stay full
@@ -181,14 +205,19 @@ from repro_torch.kernels import wkv6 as WK  # noqa: E402
 from repro_torch.kernels.ref import (flash_decode_int8_ref,  # noqa: E402
                                      flash_decode_ref, mamba_scan_ref,
                                      wkv6_ref)
+from repro_torch.core.modelspec import LLAMA31_70B  # noqa: E402
 from repro_torch.core.profiles import H100_LLAMA70B  # noqa: E402
+from repro_torch.core.topospec import TopologySpec  # noqa: E402
 from repro_torch.core.workloads import WORKLOADS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.common import rms_norm, silu  # noqa: E402
-from repro_torch.serving import (ContextRouter, PoolEngine,  # noqa: E402
-                                 Request, RouterPolicy, sample_trace)
+from repro_torch.serving import (  # noqa: E402
+    ContextRouter, PoolEngine, Request, RouterPolicy, SimVsAnalytical,
+    TraceRecorder, analytical_decode_tok_per_watt, build_timeline,
+    conservation_violations, prepare_spec, reconcile_energy, sample_trace,
+    to_perfetto)
 
 flash_decode, mamba_scan, wkv6 = FD.flash_decode, MS.mamba_scan, WK.wkv6
 flash_decode_int8, quantize_kv = FD8.flash_decode_int8, FD8.quantize_kv
@@ -1639,7 +1668,8 @@ def schedule_of(pools):
     out = {}
     for role, eng in pools.items():
         meter = {f.name: getattr(eng.meter, f.name)
-                 for f in dataclasses.fields(eng.meter) if f.name != "profile"}
+                 for f in dataclasses.fields(eng.meter)
+                 if f.name != "profile" and f.compare}
         lists = {name: [tuple(getattr(r, f) for f in SCHED)
                         for r in getattr(eng, name)]
                  for name in ("completed", "overflowed", "escalated")}
@@ -1656,7 +1686,8 @@ def phase_pressure(tag, run, models, n_requests, *, outbox=None,
     set to 0 just before, read just after) and once through analytical
     twins with each model's streamed parameters, and is checked as the
     module docstring's phase 10 says.  Returns the counts, flash_decode
-    launches by shape and the wall without the recycled-slot checks."""
+    launches by shape, the wall without the recycled-slot checks and the
+    model-mode pools."""
     def make(role, **kw):
         cfg, params, recycled = models[role]
         return recycled.watch(PoolEngine(cfg, params, profile=H100_LLAMA70B,
@@ -1741,18 +1772,21 @@ def phase_pressure(tag, run, models, n_requests, *, outbox=None,
         f" recycled-slot checks")
     if bad:
         raise SystemExit(f"phase 10 {tag}: {bad}")
-    return counts, by_shape, wall - check_s
+    return counts, by_shape, wall - check_s, pools
 
 
 def phase_10(llama, zamba2, granite):
     """10a-10c over the weights of earlier phases.  Returns the launches,
-    flash_decode launches by shape and the serve walls (checks excluded)."""
-    counts, by_shape, walls = Counter(), Counter(), {}
+    flash_decode launches by shape, the serve walls (checks excluded) and,
+    for phase 11, 10a's and 10c's counts and model-mode pools and 10c's
+    misroute seed."""
+    counts, by_shape, walls, runs = Counter(), Counter(), {}, {}
 
     def add(tag, out):
         counts.update(out[0])
         by_shape.update(out[1])
         walls[tag] = out[2]
+        runs[tag] = dict(counts=out[0], shapes=out[1], pools=out[3])
 
     cfg, params = llama
     llama_check = Recycled(cfg, params, LOGIT_REL_BOUND)
@@ -1793,7 +1827,189 @@ def phase_10(llama, zamba2, granite):
             to_f32(gcfg, gparams))),
          "large": (cfg, params, Recycled(cfg, params, LOGIT_REL_BOUND))},
         SERVE["requests"], outbox="escalated"))
-    return counts, by_shape, walls
+    runs["10c"]["seed"] = seed
+    return counts, by_shape, walls, {t: runs[t] for t in ("10a", "10c")}
+
+
+# ---- phase 11: FleetScope on the card ---------------------------------------
+
+def traced(make):
+    """An engine factory whose engines all record into one detail-level
+    `TraceRecorder`; returns (recorder, factory)."""
+    rec = TraceRecorder("detail")
+
+    def make_traced(role, **kw):
+        eng = make(role, **kw)
+        eng.attach_trace(rec)
+        return eng
+    return rec, make_traced
+
+
+def pool_energy(rec):
+    """Per-phase joules of the charge channel, per pool name."""
+    return {name: rec.energy_by_phase(pid)
+            for pid, name in enumerate(rec.pool_names)}
+
+
+def phase_trace(tag, run, models, ref, *, evictions):
+    """One phase-11 run: `run(make)` again over model-mode engines on the
+    card, each traced by `attach_trace`, and over analytical twins traced
+    alike; checked as the module docstring's phase 11 says against each
+    other and against `ref`, phase 10's untraced run of the same traffic.
+    `evictions` names the lifecycle event and outbox the run exists for.
+    Writes the model-mode run's Perfetto document under build/ and returns
+    its launch counts."""
+    kind, outbox = evictions
+
+    def make(role, **kw):
+        cfg, params = models[role]
+        return PoolEngine(cfg, params, profile=H100_LLAMA70B, name=role, **kw)
+
+    rec, make_traced = traced(make)
+    for fn in COUNTED.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pools = run(make_traced)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in COUNTED.items()}
+    streamed = {role: cfg.analytical_spec().streamed_params
+                for role, (cfg, _) in models.items()}
+    twin_rec, make_twin = traced(analytical(streamed))
+    twins = run(make_twin)
+    bad = []
+    checks = {
+        "golden streams equal": rec.golden_stream() == twin_rec.golden_stream(),
+        "event counts equal": rec.counts() == twin_rec.counts(),
+        "per-pool energy by phase equal": pool_energy(rec)
+        == pool_energy(twin_rec),
+        "schedule equal to the analytical replay's":
+            schedule_of(pools) == schedule_of(twins),
+        "schedule equal to phase 10's untraced run":
+            schedule_of(pools) == schedule_of(ref["pools"]),
+        "launches equal to phase 10's": counts == ref["counts"]}
+    rows = reconcile_energy(rec, [e.meter for e in pools.values()])
+    worst = max(r["rel_err"] for r in rows.values())
+    checks["reconciled within 1e-9"] = worst < 1e-9
+    violations = [v for e in (*pools.values(), *twins.values())
+                  for v in conservation_violations(e.meter)]
+    checks["meters conserve"] = not violations
+    left = sorted(r.rid for e in pools.values() for r in getattr(e, outbox))
+    want = sorted(r.rid for e in ref["pools"].values()
+                  for r in getattr(e, outbox))
+    n_events = rec.counts()[kind]
+    checks[f"one {kind} event per request in `{outbox}`, as in phase 10"] = \
+        bool(left) and n_events == len(left) and left == want
+    done = sorted(r.rid for e in pools.values() for r in e.completed)
+    checks["every request completed once"] = done == sorted(
+        r.rid for e in ref["pools"].values() for r in e.completed)
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+        if not ok:
+            bad.append(name)
+    log(f"  events {rec.counts()}; {kind} rids {left} (phase 10: {want});"
+        f" launches {counts} (phase 10: {ref['counts']})")
+    log(f"  reconcile_energy (model mode): " + ", ".join(
+        f"{p} {r['trace_j']:.6g} J rel {r['rel_err']:.1e}"
+        for p, r in rows.items()) + f"; conservation violations"
+        f" {violations}")
+    for role, eng in pools.items():
+        old = ref["pools"][role]
+        log(f"    {role}: {eng.decode_steps} decode steps,"
+            f" {1e3 * eng.decode_wall_s / max(eng.decode_steps, 1):.2f} ms"
+            f" wall per decode step traced, phase 10 untraced"
+            f" {1e3 * old.decode_wall_s / max(old.decode_steps, 1):.2f} ms")
+    t1 = time.perf_counter()
+    tl = build_timeline(rec)
+    doc = to_perfetto(rec)
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"fleetscope_{tag}.json"
+    path.write_text(json.dumps(doc))
+    binned = float(tl.fleet("joules").sum())
+    log(f"  timeline {tl.n_bins} bins over [{tl.t0:.3f}, {tl.t1:.3f}] s,"
+        f" {binned:.6g} J binned of {rows['total']['meter_j']:.6g} J"
+        f" metered; Perfetto document {len(doc['traceEvents'])} events ->"
+        f" {path.relative_to(out.parent.parent)}"
+        f" ({time.perf_counter() - t1:.2f} s to build)")
+    log(f"  {tag} wall {wall:.1f} s traced")
+    if bad:
+        raise SystemExit(f"phase 11 {tag}: {bad}")
+    return counts
+
+
+def phase_fleetsim():
+    """11c: the port's FleetSim, detail-traced, on the unconstrained
+    azure-conv fleetopt cell of benchmarks/results/fleet_sim.json (H100
+    Llama-70B profile, 1000 requests, seed 0), built as
+    benchmarks/fleet_sim_bench.py --quick builds the row.  Host work."""
+    spec = TopologySpec.from_kind("fleetopt", H100_LLAMA70B, LLAMA31_70B,
+                                  b_short=4096)
+    rec = TraceRecorder("detail")
+    t0 = time.perf_counter()
+    sim, reqs, plan = prepare_spec(spec, WORKLOADS["azure-conv"],
+                                   n_requests=1000, seed=0, telemetry=rec)
+    report = sim.run(reqs)
+    wall = time.perf_counter() - t0
+    f = report["fleet"]
+    cell = SimVsAnalytical(
+        workload="azure-conv", topology="fleetopt",
+        analytical_tok_per_watt=analytical_decode_tok_per_watt(plan),
+        analytical_fleet_tok_per_watt=plan.tok_per_watt,
+        sim_tok_per_watt=f["tok_per_watt"],
+        sim_decode_tok_per_watt=f["decode_tok_per_watt"], report=report)
+    row = json.loads(json.dumps(dict(
+        cell.row(), table="unconstrained",
+        occupancy={r: s["occupancy"] for r, s in report.items()
+                   if r != "fleet"},
+        prefill_energy_frac=f["prefill_energy_frac"],
+        tokens_per_s=f["tokens_per_s"])))
+    results = Path(__file__).resolve().parent / "benchmarks" / "results"
+    want, = [r for r in json.loads((results / "fleet_sim.json").read_text(
+    ))["rows"] if r["table"] == "unconstrained"
+        and r["workload"] == "azure-conv" and r["topology"] == "fleetopt"]
+    banks = [g.engine.bank for g in sim.groups.values()]
+    rows = reconcile_energy(rec, banks)
+    violations = [v for b in banks for v in conservation_violations(b)]
+    log(f"  row {json.dumps(row)}")
+    log(f"  equal to the committed row: {row == want}; reconcile_energy"
+        f" max rel {max(r['rel_err'] for r in rows.values()):.1e};"
+        f" conservation violations {violations}; {len(rec.events)} events,"
+        f" {len(rec.charges)} charge chunks; host wall {wall:.2f} s")
+    bad = [name for name, ok in (
+        ("the row differs from the committed one", row == want),
+        ("not reconciled within 1e-9",
+         all(r["rel_err"] < 1e-9 for r in rows.values())),
+        ("the meter banks do not conserve", not violations)) if not ok]
+    if bad:
+        raise SystemExit(f"phase 11c: {bad}")
+
+
+def phase_11(llama, granite, runs):
+    """11a-11c: FleetScope over phase 10a's and 10c's traffic on the card,
+    then the fleet simulator on the host.  Returns the launches."""
+    counts = Counter()
+    log(f"[11a] FleetScope, llama31-8b fleetopt on 10a's traffic, every"
+        f" engine traced at level detail")
+    counts.update(phase_trace(
+        "11a", lambda make: run_overflow(make, traffic_overflow(
+            llama[0].vocab)),
+        {"short": llama, "long": llama}, runs["10a"],
+        evictions=("overflow", "overflowed")))
+    seed = runs["10c"]["seed"]
+    vocab = min(granite[0].vocab, llama[0].vocab)
+    log(f"[11b] FleetScope, semantic escalation granite -> llama on 10c's"
+        f" traffic, misroute_seed {seed}")
+    counts.update(phase_trace(
+        "11b", lambda make: run_semantic(make, traffic_semantic(vocab),
+                                         seed),
+        {"small": granite, "large": llama}, runs["10c"],
+        evictions=("escalate", "escalated")))
+    log("[11c] FleetSim (host): unconstrained azure-conv fleetopt, 1000"
+        " requests, seed 0, traced at level detail")
+    phase_fleetsim()
+    return counts
 
 
 def load_model(name):
@@ -1895,11 +2111,19 @@ def main() -> int:
     granite = (cfg, params)
     del params
     t10 = time.perf_counter()
-    counts, by_shape, walls = phase_10(llama, zamba2, granite)
+    counts, by_shape, walls, runs = phase_10(llama, zamba2, granite)
     launches.update(counts)
     fd_launches.update(by_shape)
     log(f"phase 10: {time.perf_counter() - t10:.1f} s; serve walls without"
         f" the recycled-slot checks {json.dumps(walls)}")
+    t11 = time.perf_counter()
+    counts = phase_11(llama, granite, runs)
+    launches.update(counts)
+    for tag in ("10a", "10c"):       # the same shapes and steps again
+        for shape, n in runs[tag]["shapes"].items():
+            fd_launches[shape] += n
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    del runs
     del llama, zamba2, granite
     torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s,"

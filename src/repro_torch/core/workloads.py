@@ -59,6 +59,19 @@ class Workload:
     def outputs(self) -> np.ndarray:
         return self._sample[1]
 
+    @property
+    def mean_output(self) -> float:
+        return float(self.outputs.mean())
+
+    @property
+    def mean_prompt(self) -> float:
+        return float(self.prompts.mean())
+
+    @property
+    def mean_context(self) -> float:
+        """Fleet-wide mean KV length during decode (prompt + output/2)."""
+        return float((self.prompts + self.outputs / 2.0).mean())
+
     def sample_requests(self, n: int, seed: int = 0) -> np.ndarray:
         """(n, 2) int array of (prompt_len, output_len) for the simulator."""
         rng = np.random.default_rng(seed)

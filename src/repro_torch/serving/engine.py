@@ -58,6 +58,14 @@ C8).
 
 All post-decode bookkeeping is slot-batched over numpy arrays; Python
 loops only touch the slots that complete or leave on a given iteration.
+
+FleetScope: `attach_trace` opts an engine into a `serving.telemetry`
+`TraceRecorder`, which receives the lifecycle events (admit, prefill chunk,
+first token, handoff, escalate, overflow, complete) where and in the order
+the reference emits them against the meter's charges, and at level
+"detail" the meter's charges and the occupancy samples.  The hooks read
+host ints and floats only, in either mode, so a traced model-mode engine
+launches and synchronizes exactly what an untraced one does.
 """
 from __future__ import annotations
 
@@ -71,6 +79,9 @@ import torch
 from ..core.fleet import PREFILL_MFU
 from ..core.hardware import H100
 from ..core.profiles import BaseProfile
+from ..core.timeline import (EV_ADMIT, EV_COMPLETE, EV_ESCALATE,
+                             EV_FIRST_TOKEN, EV_HANDOFF, EV_OVERFLOW,
+                             EV_PREFILL)
 from ..models import model as M
 from .energy import EnergyMeter
 from .request import Request, latency_percentiles
@@ -187,6 +198,27 @@ class PoolEngine:
             self.cache = None
             self._gen_buf = None
         self._seed = np.int64(rng_seed)
+        # FleetScope sink (serving.telemetry.TraceRecorder): None =
+        # telemetry off; every hook is an `is not None` guard around reads
+        # of host ints and floats (never a tensor), so disabled runs are
+        # bit-identical and traced runs launch and synchronize nothing more
+        self.trace = None
+        self._trace_pool = 0
+        self._trace_inst = 0
+
+    def attach_trace(self, recorder, *, name: Optional[str] = None,
+                     instance: int = 0) -> None:
+        """Opt this engine into FleetScope tracing.  `name` overrides the
+        trace pool label (parity tests run scalar engines under a batched
+        pool's name with their instance index); the meter's charge channel
+        is only wired at level="detail"."""
+        self.trace = recorder
+        self._trace_pool = recorder.pool_id(name or self.name,
+                                            instances=1)
+        self._trace_inst = instance
+        self.meter.trace = recorder if recorder.detail else None
+        self.meter.trace_pool = self._trace_pool
+        self.meter.trace_instance = instance
 
     def _init_model(self, cfg, params) -> None:
         self.device = params["embed"].device
@@ -234,6 +266,9 @@ class PoolEngine:
             self.queue.popleft()
             slot = int(np.flatnonzero(~self._active)[0])
             plen = req.prompt_len
+            if self.trace is not None and self.trace.detail:
+                self.trace.event(EV_ADMIT, req.rid, self._trace_pool,
+                                 self._trace_inst, self.meter.sim_time_s)
             if req.prefill_done:
                 # disagg decode pool: the prompt was drained by a dedicated
                 # prefill pool and its KV arrived over the interconnect —
@@ -290,6 +325,10 @@ class PoolEngine:
                 req.generated = [first_tok]
                 req.n_generated = 1
                 req.first_token_time = self.meter.sim_time_s
+                if self.trace is not None:
+                    self.trace.event(EV_FIRST_TOKEN, req.rid,
+                                     self._trace_pool, self._trace_inst,
+                                     req.first_token_time)
 
     def _splice(self, prefill_cache, slot: int) -> None:
         """Write a single-sequence prefill cache into slab slot `slot`.
@@ -363,7 +402,11 @@ class PoolEngine:
     def _evict_overflow(self, slot: int) -> None:
         """FleetOpt migration: the request hit the pool window mid-flight
         and re-prefills one rung up the ladder."""
-        self.overflowed.append(self._back_out_and_evict(slot))
+        req = self._back_out_and_evict(slot)
+        if self.trace is not None:
+            self.trace.event(EV_OVERFLOW, req.rid, self._trace_pool,
+                             self._trace_inst, req.ready_time)
+        self.overflowed.append(req)
 
     def _evict_escalation(self, slot: int) -> None:
         """Semantic misroute detected after `escalate_at` decode tokens:
@@ -372,6 +415,9 @@ class PoolEngine:
         req = self._back_out_and_evict(slot)   # clears the escalation tag
         req.escalations += 1
         self.n_escalated += 1
+        if self.trace is not None:
+            self.trace.event(EV_ESCALATE, req.rid, self._trace_pool,
+                             self._trace_inst, req.ready_time)
         self.escalated.append(req)
 
     # --- one continuous-batching iteration ------------------------------
@@ -410,6 +456,10 @@ class PoolEngine:
             if budget <= 0:
                 break
             take = int(min(budget, self.prefill_left[i]))
+            if self.trace is not None and self.trace.detail:
+                self.trace.event(EV_PREFILL, self.slots[i].rid,
+                                 self._trace_pool, self._trace_inst,
+                                 self.meter.sim_time_s)
             self.meter.charge_prefill(
                 take, mfu=self.prefill_mfu,
                 streamed_params=self._streamed_params,
@@ -424,6 +474,10 @@ class PoolEngine:
                     if self._gen_buf is None else [int(self._gen_buf[i, 0])]
                 req.n_generated = 1
                 req.first_token_time = self.meter.sim_time_s
+                if self.trace is not None:
+                    self.trace.event(EV_FIRST_TOKEN, req.rid,
+                                     self._trace_pool, self._trace_inst,
+                                     req.first_token_time)
 
     def _finish_prefill(self, slot: int) -> None:
         """Prefill-phase completion: the prompt drained and its first token
@@ -435,6 +489,11 @@ class PoolEngine:
         req.first_token_time = self.meter.sim_time_s
         req.prefill_done = True
         req.ready_time = self.meter.sim_time_s
+        if self.trace is not None:
+            self.trace.event(EV_FIRST_TOKEN, req.rid, self._trace_pool,
+                             self._trace_inst, req.first_token_time)
+            self.trace.event(EV_HANDOFF, req.rid, self._trace_pool,
+                             self._trace_inst, req.ready_time)
         self.handoff.append(req)
         self.relayed.append(req)
         self._clear_slot(slot)
@@ -456,6 +515,10 @@ class PoolEngine:
             if budget <= 0:
                 break
             take = int(min(budget, self.prefill_left[i]))
+            if self.trace is not None and self.trace.detail:
+                self.trace.event(EV_PREFILL, self.slots[int(i)].rid,
+                                 self._trace_pool, self._trace_inst,
+                                 self.meter.sim_time_s)
             self.meter.charge_prefill(
                 take, mfu=self.prefill_mfu,
                 streamed_params=self._streamed_params)
@@ -465,6 +528,12 @@ class PoolEngine:
             if self.prefill_left[i] == 0:
                 self._finish_prefill(int(i))
         self.slot_seconds += n_occupied * (self.meter.sim_time_s - t_start)
+        if self.trace is not None and self.trace.detail:
+            dt = self.meter.sim_time_s - t_start
+            if dt > 0.0:
+                self.trace.occupancy_sample(self._trace_pool,
+                                            self._trace_inst, t_start,
+                                            dt, n_occupied)
         return n_work
 
     @torch.inference_mode()
@@ -511,6 +580,12 @@ class PoolEngine:
         if self.prefill_chunk:
             self._drain_prefill_chunk(overlap_s=tau)
         self.slot_seconds += n_occupied * (self.meter.sim_time_s - t_start)
+        if self.trace is not None and self.trace.detail:
+            dt = self.meter.sim_time_s - t_start
+            if dt > 0.0:
+                self.trace.occupancy_sample(self._trace_pool,
+                                            self._trace_inst, t_start,
+                                            dt, n_occupied)
         return n_dec
 
     def _finish(self, slot: int) -> None:
@@ -522,6 +597,9 @@ class PoolEngine:
         else:
             req.generated = None    # analytical mode: ids are synthetic
         req.finish_time = self.meter.sim_time_s
+        if self.trace is not None:
+            self.trace.event(EV_COMPLETE, req.rid, self._trace_pool,
+                             self._trace_inst, req.finish_time)
         self.completed.append(req)
         self._clear_slot(slot)
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..core.routing import ESCALATION_DETECT_TOKENS
 from ..core.topospec import SEMANTIC_KINDS  # noqa: F401  (re-export)
@@ -75,9 +75,12 @@ class RouterPolicy:
     def is_semantic(self) -> bool:
         return self.flip is not None
 
-    def admission_ladder(self) -> List[Tuple[str, float]]:
+    def admission_ladder(self, roles: Sequence[str] = ()
+                         ) -> List[Tuple[str, float]]:
         """Ordered (role, boundary) pairs; route to the first role whose
-        boundary >= the request's routing metric."""
+        boundary >= the request's routing metric.  `roles` is accepted
+        for the reference's signature and not read: the ladder is
+        explicit."""
         if not self.ladder:
             raise ValueError(f"{self.kind} policy needs an explicit ladder")
         return list(self.ladder)

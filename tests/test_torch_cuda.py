@@ -28,6 +28,11 @@ width, reduced depth: short prompts admitted into slots that served longer
 sequences hold K/V rows and O(1) state bit-equal to a fresh prefill, and
 the rows past each slot's position, overwritten with +-999, leave a decode
 step's logits bit-equal.
+FleetScope on a model-mode fleet (chip_smoke.py's phase 11a at llama31-8b
+`.reduced()`): the fleetopt overflow run traced at level detail equals its
+analytical replay's golden stream, counts and per-pool energies exactly,
+reconciles within 1e-9, conserves, takes one overflow, and launches
+exactly what the untraced run launches.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
 an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
@@ -37,10 +42,12 @@ This file imports no jax, so it runs where only PyTorch is installed.
 """
 import ctypes
 import dataclasses
+import math
 import os
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,7 +65,12 @@ from repro_torch.core.profiles import H100_LLAMA70B
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.models.common import rms_norm, silu
-from repro_torch.serving import PoolEngine, Request
+from repro_torch.launch.serve import demo_requests
+from repro_torch.serving import (ContextRouter, PoolEngine, Request,
+                                 RouterPolicy, TraceRecorder,
+                                 conservation_violations, reconcile_energy,
+                                 sample_trace)
+from repro_torch.core.workloads import WORKLOADS
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -619,3 +631,75 @@ def test_recycled_slots_on_card(gen, arch, n_repeat):
             for n, c in eng.cache.items()}, eng.pos)
         b, _ = M.decode_step(params, cfg, tokens, masked, eng.pos)
     assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ---- FleetScope on a model-mode fleet --------------------------------------
+
+def _overflow_fleet(make, vocab):
+    """chip_smoke.py's 10a traffic and pools: 25 azure-conv demo requests
+    predicting the median output, Poisson arrivals at 50/s, a short pool
+    (16 x 256) evicting at its window and a long one (4 x 1024); the short
+    pool's overflow re-served in the long."""
+    reqs = demo_requests(vocab, "azure-conv", 25, 1024)
+    pred = int(np.median([r.max_new_tokens for r in reqs]))
+    trace = sample_trace(WORKLOADS["azure-conv"], len(reqs), seed=0,
+                         arrival_rate=50.0)
+    for r, (_, _, t) in zip(reqs, trace):
+        r.predicted_output, r.arrival_time = pred, t
+    pools = {"short": make("short", window=256, n_slots=16,
+                           evict_on_overflow=True, respect_arrival=True),
+             "long": make("long", window=1024, n_slots=4,
+                          respect_arrival=True)}
+    router = ContextRouter(pools, RouterPolicy(
+        kind="fleetopt", b_short=128, gamma=2.0,
+        ladder=[("short", 256.0), ("long", math.inf)]))
+    for r in reqs:
+        router.route(r)
+    pools["short"].run_until_drained()
+    for r in pools["short"].overflowed:
+        pools["long"].submit(r)
+    pools["long"].run_until_drained()
+    return pools
+
+
+def test_fleetscope_traced_overflow_fleet_on_card(gen):
+    cfg = get_config("llama31-8b").reduced()
+    params = M.init_params(cfg, gen, "cuda")
+    streamed = cfg.analytical_spec().streamed_params
+
+    def fleet(traced, model):
+        rec = TraceRecorder("detail")
+
+        def make(role, **kw):
+            eng = PoolEngine(cfg if model else None,
+                             params if model else None,
+                             profile=H100_LLAMA70B, name=role,
+                             streamed_params=None if model else streamed,
+                             **kw)
+            if traced:
+                eng.attach_trace(rec)
+            return eng
+        flash_decode.launches = 0
+        pools = _overflow_fleet(make, cfg.vocab)
+        return rec, pools, flash_decode.launches
+
+    plain_rec, plain, plain_launches = fleet(False, True)
+    rec, pools, launches = fleet(True, True)
+    twin_rec, twins, _ = fleet(True, False)
+    assert rec.golden_stream() == twin_rec.golden_stream()
+    assert rec.counts() == twin_rec.counts()
+    assert rec.counts()["overflow"] == 1
+    assert [rec.energy_by_phase(p) for p in range(len(rec.pool_names))] \
+        == [twin_rec.energy_by_phase(p)
+            for p in range(len(twin_rec.pool_names))]
+    meters = [e.meter for e in pools.values()]
+    for row in reconcile_energy(rec, meters).values():
+        assert row["rel_err"] < 1e-9, row
+    assert all(conservation_violations(m) == [] for m in meters
+               + [e.meter for e in twins.values()])
+    steps = sum(e.decode_steps for e in pools.values())
+    assert launches == plain_launches == cfg.attn_block_count * steps
+    assert not plain_rec.events
+    for role, eng in pools.items():
+        assert [r.generated for r in eng.completed] \
+            == [r.generated for r in plain[role].completed]

@@ -1,9 +1,10 @@
 """Import and device hygiene of the port.
 
-The port and `chip_smoke.py` import neither jax nor the reference package
-`repro`; importing the port leaves jax unloaded; its entry points refuse
-to run on CUDA when there is none instead of falling back to the CPU; and
-its kernel modules import where no CUDA toolkit is installed.
+The port, `chip_smoke.py` and `tools/port_fleet_bench.py` import neither
+jax nor the reference package `repro`; importing them leaves jax unloaded;
+the port's entry points refuse to run on CUDA when there is none instead
+of falling back to the CPU; and its kernel modules import where no CUDA
+toolkit is installed.
 """
 import ast
 import os
@@ -16,7 +17,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "port_fleet_bench.py"]
 
 
 def _imported_roots(path):
@@ -39,7 +40,14 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.kernels.ops, repro_torch.serving.models, "
             "repro_torch.core.fleet, repro_torch.core.routing, "
-            "repro_torch.core.topospec; "
+            "repro_torch.core.topospec, repro_torch.core.timeline, "
+            "repro_torch.core.autoscale, repro_torch.core.disagg, "
+            "repro_torch.core.multipool, repro_torch.core.slo, "
+            "repro_torch.serving.telemetry, repro_torch.serving.energy, "
+            "repro_torch.serving.engine, repro_torch.serving.autoscale, "
+            "repro_torch.serving.soa, repro_torch.serving.fleetsim; "
+            f"sys.path.insert(0, {str(ROOT / 'tools')!r}); "
+            "import port_fleet_bench; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
