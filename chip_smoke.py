@@ -166,6 +166,27 @@ Phases, in order; any failure exits non-zero:
               cell of benchmarks/results/fleet_sim.json (H100 Llama-70B
               profile, 1000 requests, seed 0), its row equal to the
               committed one, reconciled within 1e-9 and conserving;
+  12. drain   the compiled fleet drain (serving.graph_engine,
+              engine="graph": float64 torch steps replayed as CUDA graphs;
+              no hand-written kernel) on the card: 12a one Table E cell of
+              each of its five families on each of its four chips (the
+              first of each in tools/port_fleet_bench.py's grid_cells, 400
+              requests, seed 0), drained by run_fleet_grid with the shape
+              classes under "graph" and under the numpy engine: every pool
+              of every cell equal (integer and ordering fields exact,
+              meters and times at rtol 1e-9, atol 1e-12, the reference
+              drain tests' `_assert_parity`), and every rounded row equal
+              to benchmarks/results/fleet_grid.json's; 12b one shape class
+              drained by eager steps on the card and by graph replays,
+              every array of the final state bit-equal; 12c a traced
+              (lifecycle) FleetSim(engine="graph") on fleet_sim.json's
+              azure-conv fleetopt cell (1000 requests, seed 0): counts
+              and every request's event sequence equal numpy's, times at
+              rtol 1e-9; 12d a planted fault made from the unchanged
+              module (coast's closed-form spans charged without idle
+              power) must fail 12a's gate on the fleetopt cells; 12e the
+              graph card wall and the numpy host wall per family, named,
+              beside the card's name and power limit;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -216,9 +237,14 @@ from repro_torch.models.common import rms_norm, silu  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ContextRouter, PoolEngine, Request, RouterPolicy, SimVsAnalytical,
     TraceRecorder, analytical_decode_tok_per_watt, build_timeline,
-    conservation_violations, prepare_spec, reconcile_energy, sample_trace,
-    to_perfetto)
+    conservation_violations, prepare_spec, reconcile_energy, run_fleet_grid,
+    sample_trace, to_perfetto)
+from repro_torch.serving import graph_engine as GE  # noqa: E402
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+import port_fleet_bench as PFB  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent
 flash_decode, mamba_scan, wkv6 = FD.flash_decode, MS.mamba_scan, WK.wkv6
 flash_decode_int8, quantize_kv = FD8.flash_decode_int8, FD8.quantize_kv
 DEVICE = "cuda"
@@ -2012,6 +2038,199 @@ def phase_11(llama, granite, runs):
     return counts
 
 
+# ---- phase 12: the compiled fleet drain on the card ------------------------
+
+DRAIN_RTOL, DRAIN_ATOL = 1e-9, 1e-12     # test_jax_engine's _assert_parity
+DRAIN_METERS = ("joules", "m_joules", "prefill_joules", "m_prefill_joules",
+                "idle_joules", "m_idle_joules", "dispatch_joules",
+                "m_dispatch_joules", "sim_time_s")
+DRAIN_FIELDS = ("completed", "overflowed", "escalated", "relayed", "handoff")
+
+
+def drain_parity(ref, got):
+    """`_assert_parity` of the reference's drain tests, as a list of
+    failures: integer and ordering fields exact, meters and times within
+    DRAIN_RTOL / DRAIN_ATOL."""
+    bad = []
+
+    def close(a, b):
+        return np.allclose(a, b, rtol=DRAIN_RTOL, atol=DRAIN_ATOL)
+
+    for k in DRAIN_METERS:
+        if not close(getattr(got.bank, k), getattr(ref.bank, k)):
+            bad.append(k)
+    for k in ("tokens", "m_tokens", "prefill_tokens"):
+        if not np.array_equal(getattr(got.bank, k), getattr(ref.bank, k)):
+            bad.append(k)
+    for k in ("slot_seconds", "m_slot_seconds"):
+        if not close(getattr(got, k), getattr(ref, k)):
+            bad.append(k)
+    for k in ("preempted", "n_escalated"):
+        if not np.array_equal(getattr(got, k), getattr(ref, k)):
+            bad.append(k)
+    for field in DRAIN_FIELDS:
+        for sa, sb in zip(getattr(ref, field), getattr(got, field)):
+            if [r.rid for r in sa] != [r.rid for r in sb]:
+                bad.append(f"{field} order")
+                continue
+            for ra, rb in zip(sa, sb):
+                same = all(getattr(ra, k) == getattr(rb, k) for k in (
+                    "n_generated", "preemptions", "escalations",
+                    "prefill_done", "generated"))
+                for k in ("finish_time", "first_token_time", "ready_time"):
+                    a, b = getattr(ra, k), getattr(rb, k)
+                    same &= (a is None) == (b is None) and (
+                        a is None or close(a, b))
+                if not same:
+                    bad.append(f"{field} rid {ra.rid}")
+    return bad
+
+
+def grid_family(cells, engine):
+    """One run_fleet_grid call over `cells` (Table E's path: shape classes
+    for the graph drain); returns (sims, rows, wall s)."""
+    t0 = time.perf_counter()
+    scenarios = PFB.grid_scenarios(cells, engine=engine, device=DEVICE)
+    out = run_fleet_grid(scenarios, pad_floors=PFB.SHAPE_CLASSES
+                         if engine == "graph" else None)
+    rows = [PFB.grid_row(label, cell)
+            for (label, *_), cell in zip(cells, out)]
+    return [sim for sim, _, _ in scenarios], rows, time.perf_counter() - t0
+
+
+def fleet_parity(ref_sims, sims):
+    """drain_parity of every pool of every scenario."""
+    return [f"cell {i} {role}: {b}"
+            for i, (ra, rb) in enumerate(zip(ref_sims, sims))
+            for role in ra.order
+            for b in drain_parity(ra.groups[role].engine,
+                                  rb.groups[role].engine)]
+
+
+@contextlib.contextmanager
+def no_coast_idle():
+    """The planted fault, made from the unchanged module: every drain's
+    inputs hide the idle-power term from `coast` alone (its closed-form
+    decode spans are charged logistic power only).  Fresh graphs are
+    captured inside the block and dropped after it."""
+    class Inputs(dict):
+        def __getitem__(self, k):
+            v = dict.__getitem__(self, k)
+            if k == "p_idle" and sys._getframe(1).f_code.co_name == "coast":
+                return torch.zeros_like(v)
+            return v
+
+    def get_drain(*args):
+        d = GE._Drain(*args)
+        d.p = Inputs(d.p)
+        return d
+
+    GE._DRAIN_CACHE.clear()
+    try:
+        with patched(GE, "_get_drain", get_drain):
+            yield
+    finally:
+        GE._DRAIN_CACHE.clear()
+
+
+def phase_drain():
+    """12a-12e, as the module docstring says.  Launches no kernel."""
+    fams = {}
+    for c in PFB.grid_cells():
+        label, kind = c[0], c[1]
+        fams.setdefault(kind, {}).setdefault(label["generation"], c)
+    label = ("generation", "topology", "dispatch_ms", "misroute_rate",
+             "b_short", "gamma", "k_pools")
+    want = {tuple(r[k] for k in label): r for r in json.loads(
+        (ROOT / "benchmarks" / "results" / "fleet_grid.json").read_text())}
+
+    def differs(row):
+        return json.loads(json.dumps(row)) \
+            != want[tuple(row[k] for k in label)]
+
+    card = PFB.card_line()
+    bad, walls, n_graphs = [], {}, len(GE._DRAIN_CACHE)
+    for kind, by_gen in fams.items():
+        cells = list(by_gen.values())
+        ref_sims, ref_rows, np_wall = grid_family(cells, "numpy")
+        sims, rows, wall = grid_family(cells, "graph")
+        captured = len(GE._DRAIN_CACHE) - n_graphs
+        n_graphs += captured
+        walls[kind] = dict(graph_card_wall_s=round(wall, 3),
+                           numpy_host_wall_s=round(np_wall, 3),
+                           graphs_captured=captured)
+        diffs = fleet_parity(ref_sims, sims)
+        diffs += [f"{r['generation']} row differs from fleet_grid.json"
+                  for r in rows + ref_rows if differs(r)]
+        log(f"  12a {kind}: {len(cells)} cells ({', '.join(by_gen)}),"
+            f" graph card wall {wall:.2f} s ({captured} graphs captured)"
+            f" [{card}], numpy host wall {np_wall:.2f} s; parity and"
+            f" committed rows: {diffs or 'equal'}")
+        bad += [f"12a {kind}: {d}" for d in diffs]
+
+    # 12b: one shape class, eager steps on the card vs graph replays
+    sim, reqs, _ = PFB.grid_scenarios([fams["fleetopt"]["H100"]],
+                                      engine="graph", device=DEVICE)[0]
+    sim.begin_run(reqs)
+    eng = sim.pre_role(sim.order[0])
+    packed = eng._pack(20_000_000)
+    dims = (GE._bucket(eng.instances), GE._bucket(eng.n_slots),
+            GE._bucket(packed["q_ready"].shape[1]))
+    merged = GE._merge([packed], dims[0], dims[2])
+    drain = GE._get_drain(eng.phase, *dims, merged, eng.device)
+    eager = drain.run(merged, replay=False)
+    graph = drain.run(merged)
+    differ = [k for k in eager if eager[k].tobytes() != graph[k].tobytes()]
+    log(f"  12b {eng.name} (I, S, Q) = {dims}: {int(eager['it'])} steps;"
+        f" graph replay vs eager, arrays differing: {differ or 'none'}"
+        f" of {len(eager)}")
+    if differ:
+        bad.append(f"12b: graph replay differs from eager in {differ}")
+
+    # 12c: FleetScope's lifecycle stream, numpy vs graph, per request
+    spec = TopologySpec.from_kind("fleetopt", H100_LLAMA70B, LLAMA31_70B,
+                                  b_short=4096)
+    streams = {}
+    for engine in ("numpy", "graph"):
+        rec = TraceRecorder("lifecycle")
+        sim, reqs, _ = prepare_spec(spec, WORKLOADS["azure-conv"],
+                                    n_requests=1000, seed=0, engine=engine,
+                                    telemetry=rec, device=DEVICE)
+        sim.run(reqs)
+        by_rid = {}
+        for t, rid, kind, pool, inst in rec.sorted_events():
+            by_rid.setdefault(rid, []).append((kind, pool, inst, t))
+        streams[engine] = (rec.counts(), rec.pool_names, by_rid)
+    (c_np, p_np, a), (c_g, p_g, b) = streams["numpy"], streams["graph"]
+    stream_bad = sorted(a.keys() ^ b.keys()) + [
+        rid for rid in a.keys() & b.keys()
+        if [e[:3] for e in a[rid]] != [e[:3] for e in b[rid]]
+        or not np.allclose([e[3] for e in a[rid]], [e[3] for e in b[rid]],
+                           rtol=DRAIN_RTOL, atol=DRAIN_ATOL)]
+    log(f"  12c azure fleetopt, 1000 requests: counts {dict(c_g)}; equal"
+        f" to numpy's: {c_np == c_g and p_np == p_g}; requests whose"
+        f" stream differs: {stream_bad or 'none'}")
+    if stream_bad or c_np != c_g or p_np != p_g:
+        bad.append(f"12c: lifecycle streams differ ({stream_bad[:5]})")
+
+    # 12d: the planted fault must fail 12a's gate
+    cells = list(fams["fleetopt"].values())
+    ref_sims, _, _ = grid_family(cells, "numpy")
+    with no_coast_idle():
+        sims, rows, _ = grid_family(cells, "graph")
+    caught = fleet_parity(ref_sims, sims) + [
+        f"{r['generation']} row" for r in rows if differs(r)]
+    log(f"  12d planted fault (coast without idle power) on fleetopt:"
+        f" {len(caught)} failures, e.g. {caught[:3]}")
+    if not caught:
+        bad.append("12d: the planted fault passed 12a's gate")
+    log(f"  12e walls per family (graph: card wall on {card}; numpy: host"
+        f" wall): {json.dumps(walls)}")
+    if bad:
+        raise SystemExit(f"phase 12: {bad}")
+    return walls
+
+
 def load_model(name):
     cfg = get_config(name)
     t0 = time.perf_counter()
@@ -2126,6 +2345,10 @@ def main() -> int:
     del runs
     del llama, zamba2, granite
     torch.cuda.empty_cache()
+    log("[12] drain: the compiled fleet drain (engine=\"graph\") vs numpy")
+    t12 = time.perf_counter()
+    phase_drain()
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

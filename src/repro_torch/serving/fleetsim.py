@@ -14,10 +14,11 @@ head-to-head against the `core.fleet` prediction — the TokenPowerBench-
 style measurement cross-check of the 1/W law.  (The batched engines
 replay the scalar `PoolEngine` semantics bit-for-bit.)
 
-The pools drain in the numpy `BatchedPoolEngine` only: the compiled drain
-that the reference also offers (`engine="jax"`) has no twin here yet
-(ROADMAP A 2c), and every other engine name raises NotImplementedError
-rather than falling back to numpy.
+The pools drain in the numpy `BatchedPoolEngine` (`engine="numpy"`, the
+bit-exact oracle) or in the compiled drain (`engine="graph"`,
+serving.graph_engine: float64 torch steps replayed as CUDA graphs, the
+twin of the reference's `engine="jax"`).  Every other engine name, "jax"
+included, raises NotImplementedError rather than falling back to numpy.
 
 Execution model (event-driven, per-instance timelines):
 
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -77,6 +79,7 @@ from ..core.workloads import Workload
 
 from .autoscale import Autoscaler, InstanceSchedule
 from .engine import scaled_prefill_chunk
+from .graph_engine import GraphPoolEngine, drain_engines
 from .models import ModelProfileRegistry
 from .request import (Request, latency_percentiles as _percentiles,
                       latency_percentiles_arrays, sample_trace)
@@ -84,15 +87,18 @@ from .router import ContextRouter, RouterPolicy
 from .soa import BatchedPoolEngine
 
 
+ENGINES = ("numpy", "graph")
+
+
 def _check_engine(engine: str) -> None:
-    """The port drains fleets in numpy only.  The reference's compiled
-    drain (`engine="jax"`) is ROADMAP A 2c, not yet ported; no engine name
-    but "numpy" is served, and none falls back to it."""
-    if engine != "numpy":
+    """The port drains fleets in the numpy `BatchedPoolEngine` or in the
+    compiled drain of ROADMAP A 2c (`GraphPoolEngine`); no other engine
+    name is served, the reference's "jax" included, and none falls back
+    to numpy."""
+    if engine not in ENGINES:
         raise NotImplementedError(
-            f"engine={engine!r}: the port drains fleets only in the numpy "
-            "BatchedPoolEngine; the compiled drain is ROADMAP A 2c, not "
-            "yet ported")
+            f"engine={engine!r}: the port drains fleets only in the engines "
+            f"{ENGINES} (the compiled drain of ROADMAP A 2c is 'graph')")
 
 
 def trace_requests(workload: Workload, n: int, *, seed: int = 0,
@@ -393,7 +399,9 @@ class FleetSim:
     pool's* model bytes, and the per-engine prefill chunk is scaled by its
     pool profile's HBM bandwidth (`scaled_prefill_chunk`) so faster
     generations spend their surplus FLOPs on prompt processing instead of
-    idling at the H100-calibrated chunk rate."""
+    idling at the H100-calibrated chunk rate.  `engine` picks the pools'
+    drain ("numpy" or "graph", see `_check_engine`); a "graph" fleet
+    drains on `device`."""
 
     def __init__(self, policy: RouterPolicy, plan: FleetReport, *,
                  model: Optional[ModelSpec] = None,
@@ -404,7 +412,7 @@ class FleetSim:
                  kv_handoff_j_per_byte: float = HANDOFF_J_PER_BYTE,
                  engine: str = "numpy",
                  autoscale: Optional[AutoscalePolicy] = None,
-                 telemetry=None):
+                 telemetry=None, device="cuda"):
         self.policy = policy
         self.plan = plan
         self.autoscale = autoscale
@@ -414,7 +422,14 @@ class FleetSim:
         self.telemetry = telemetry if telemetry is not None \
             else FleetSim.default_telemetry
         _check_engine(engine)
-        engine_cls = BatchedPoolEngine
+        if autoscale is not None and engine != "numpy":
+            # the compiled drain starts every row's clock at zero, so
+            # per-row online offsets would be silently dropped
+            raise ValueError("autoscale requires the numpy engine")
+        # `device` is where the graph engine drains ("cuda" unless the
+        # caller asks for the CPU); the numpy engine has none
+        engine_cls = BatchedPoolEngine if engine == "numpy" \
+            else functools.partial(GraphPoolEngine, device=device)
         self.engine_kind = engine
         pools = sorted(plan.pools, key=lambda p: p.window)
         if registry is None:
@@ -870,7 +885,7 @@ def prepare_spec(spec: TopologySpec, workload: Workload, *,
                  engine: str = "numpy",
                  trace: Optional[List[Tuple[int, int, float]]] = None,
                  autoscale: bool = False,
-                 telemetry=None):
+                 telemetry=None, device="cuda"):
     """Provision a `TopologySpec` analytically and synthesise its trace;
     returns `(sim, reqs, plan)` ready for `sim.run(reqs)` — the common
     front half of `simulate_spec`, split out so the grid loop (and the
@@ -897,7 +912,7 @@ def prepare_spec(spec: TopologySpec, workload: Workload, *,
     sim = FleetSim(policy, plan, registry=registry,
                    prefill_chunk=prefill_chunk, rng_seed=seed,
                    engine=engine, autoscale=as_policy,
-                   telemetry=telemetry)
+                   telemetry=telemetry, device=device)
     sim.workload_name = workload.name     # grid-loop report labels
     sim.topology_kind = spec.kind
     reqs = trace_requests(workload, n_requests, seed=seed,
@@ -918,7 +933,7 @@ def prepare_topology(kind: str, workload: Workload, profile: BaseProfile,
                      misroute_rate: float = 0.0,
                      dispatch_ms: float = 0.0,
                      long_window: int = LONG_WINDOW,
-                     engine: str = "numpy"):
+                     engine: str = "numpy", device="cuda"):
     """Legacy-kind front end of `prepare_spec`: compile the kind string to
     a `TopologySpec` and prepare it."""
     spec = TopologySpec.from_kind(
@@ -929,7 +944,8 @@ def prepare_topology(kind: str, workload: Workload, profile: BaseProfile,
     return prepare_spec(spec, workload, n_requests=n_requests, seed=seed,
                         arrival_rate=arrival_rate,
                         prefill_chunk=prefill_chunk,
-                        pool_overrides=pool_overrides, engine=engine)
+                        pool_overrides=pool_overrides, engine=engine,
+                        device=device)
 
 
 def _sim_vs_analytical(sim: FleetSim, plan, kind: str,
@@ -957,16 +973,20 @@ def simulate_topology(kind: str, workload: Workload, profile: BaseProfile,
                       misroute_rate: float = 0.0,
                       dispatch_ms: float = 0.0,
                       long_window: int = LONG_WINDOW,
-                      engine: str = "numpy") -> SimVsAnalytical:
-    """Provision a topology analytically, then measure it end-to-end
-    (numpy engine only: see `_check_engine`)."""
+                      engine: str = "numpy",
+                      device="cuda") -> SimVsAnalytical:
+    """Provision a topology analytically, then measure it end-to-end.
+    `engine="graph"` drains the pools in the compiled drain on `device`
+    (serving.graph_engine); the default numpy engine is the bit-exact
+    oracle."""
     sim, reqs, plan = prepare_topology(
         kind, workload, profile, model, b_short=b_short, gamma=gamma,
         n_requests=n_requests, seed=seed, arrival_rate=arrival_rate,
         prefill_chunk=prefill_chunk, windows=windows,
         pool_overrides=pool_overrides, small_model=small_model,
         small_profile=small_profile, misroute_rate=misroute_rate,
-        dispatch_ms=dispatch_ms, long_window=long_window, engine=engine)
+        dispatch_ms=dispatch_ms, long_window=long_window, engine=engine,
+        device=device)
     report = sim.run(reqs)
     return _sim_vs_analytical(sim, plan, kind, workload.name, report)
 
@@ -976,13 +996,14 @@ def simulate_spec(spec: TopologySpec, workload: Workload, *,
                   arrival_rate: Optional[float] = None,
                   prefill_chunk: int = 512,
                   pool_overrides: Optional[Dict[str, PoolOverride]] = None,
-                  engine: str = "numpy") -> SimVsAnalytical:
+                  engine: str = "numpy",
+                  device="cuda") -> SimVsAnalytical:
     """Measure an arbitrary `TopologySpec` end-to-end — `simulate_topology`
     for specs that never had a kind string (hand-built or searched)."""
     sim, reqs, plan = prepare_spec(
         spec, workload, n_requests=n_requests, seed=seed,
         arrival_rate=arrival_rate, prefill_chunk=prefill_chunk,
-        pool_overrides=pool_overrides, engine=engine)
+        pool_overrides=pool_overrides, engine=engine, device=device)
     report = sim.run(reqs)
     return _sim_vs_analytical(sim, plan, spec.kind, workload.name, report)
 
@@ -990,25 +1011,42 @@ def simulate_spec(spec: TopologySpec, workload: Workload, *,
 def run_fleet_grid(scenarios: List[Tuple[FleetSim, List[Request], object]],
                    *, max_iters: int = 20_000_000,
                    warmup_frac: float = 0.35,
-                   engine: str = "numpy") -> List[SimVsAnalytical]:
-    """Drain many prepared scenarios stage by stage: stage k prepares the
-    k-th pool of every scenario, then lets each sim drain it and finish
-    its per-stage bookkeeping (outbox routing, KV-handoff charging,
-    summaries) exactly as `FleetSim.run` would.
+                   pad_floors: Optional[Sequence[tuple]] = None,
+                   engine: Optional[str] = None) -> List[SimVsAnalytical]:
+    """Drain many prepared scenarios stage by stage so each topological
+    stage's graph-engine pools drain as **one** batched call.
 
-    `scenarios` is a list of `prepare_topology(...)` triples.  In the
-    reference this is where each stage's pools drain as one compiled
-    call (with its shape classes, `pad_floors`); here every pool drains
-    in its numpy `BatchedPoolEngine`, and `engine` other than "numpy"
-    raises (ROADMAP A 2c)."""
-    _check_engine(engine)
+    `scenarios` is a list of `prepare_topology(...)` triples (sims built
+    with `engine="graph"`; numpy sims also work — they just drain
+    serially inside the stage loop).  Stage k collects the k-th pool of
+    every scenario, batch-drains the graph ones via
+    `graph_engine.drain_engines`, then lets each sim finish its per-stage
+    bookkeeping (outbox routing, KV-handoff charging, summaries) on the
+    host exactly as `FleetSim.run` would.  `pad_floors` forwards shape
+    classes to `drain_engines` so sweeps spanning many pool geometries
+    share a handful of captured graphs.  `engine`, when given, must be a
+    served engine name (`_check_engine`) and the one every scenario's sim
+    was built with."""
+    if engine is not None:
+        _check_engine(engine)
+        kinds = {sim.engine_kind for sim, _, _ in scenarios}
+        if kinds != {engine}:
+            raise ValueError(f"engine={engine!r}, but the scenarios were "
+                             f"built with {sorted(kinds)}")
     for sim, reqs, _ in scenarios:
         sim.begin_run(reqs, warmup_frac=warmup_frac)
     n_stages = max(len(sim.order) for sim, _, _ in scenarios)
     for k in range(n_stages):
+        staged = []
         for sim, _, _ in scenarios:
-            if k < len(sim.order):
-                sim.pre_role(sim.order[k])
+            if k >= len(sim.order):
+                continue
+            eng = sim.pre_role(sim.order[k])
+            if isinstance(eng, GraphPoolEngine):
+                staged.append(eng)
+        if staged:
+            drain_engines(staged, max_iters=max_iters,
+                          pad_floors=pad_floors)
         for sim, _, _ in scenarios:
             if k < len(sim.order):
                 sim.drain_role(sim.order[k], max_iters=max_iters)

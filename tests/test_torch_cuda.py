@@ -33,6 +33,12 @@ FleetScope on a model-mode fleet (chip_smoke.py's phase 11a at llama31-8b
 analytical replay's golden stream, counts and per-pool energies exactly,
 reconciles within 1e-9, conserves, takes one overflow, and launches
 exactly what the untraced run launches.
+The compiled fleet drain (`serving.graph_engine`, no kernel of its own):
+its CUDA-graph replay equals its eager steps on the card bit for bit, in
+the decode and the prefill phase, and two Table E cells drained by
+`engine="graph"` on the card equal the numpy engine pool for pool
+(chip_smoke.py's `fleet_parity`: integer and ordering fields exact, meters
+at rtol 1e-9) and the committed rows of benchmarks/results/fleet_grid.json.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
 an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
@@ -42,9 +48,11 @@ This file imports no jax, so it runs where only PyTorch is installed.
 """
 import ctypes
 import dataclasses
+import json
 import math
 import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -71,6 +79,13 @@ from repro_torch.serving import (ContextRouter, PoolEngine, Request,
                                  conservation_violations, reconcile_energy,
                                  sample_trace)
 from repro_torch.core.workloads import WORKLOADS
+from repro_torch.serving import graph_engine as GE
+from repro_torch.serving import run_fleet_grid
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
+import port_fleet_bench as PFB  # noqa: E402
+from chip_smoke import fleet_parity  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -703,3 +718,63 @@ def test_fleetscope_traced_overflow_fleet_on_card(gen):
     for role, eng in pools.items():
         assert [r.generated for r in eng.completed] \
             == [r.generated for r in plain[role].completed]
+
+
+# --- the compiled fleet drain on the card -----------------------------------
+
+def _grid_cell(kind, generation="H100"):
+    cell, = [c for c in PFB.grid_cells()
+             if c[1] == kind and c[0]["generation"] == generation][:1]
+    return cell
+
+
+def _prepare_azure(kind):
+    from repro_torch.core.modelspec import LLAMA31_70B
+    from repro_torch.serving import prepare_topology
+    return prepare_topology(kind, WORKLOADS["azure-conv"], H100_LLAMA70B,
+                            LLAMA31_70B, b_short=4096, n_requests=400,
+                            seed=0, engine="graph", device="cuda")
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_graph_drain_replay_equals_eager_on_card(gen, phase):
+    """One shape class drained by eager steps on the card and by graph
+    replays: every array of the final state equal bit for bit."""
+    kind = "fleetopt" if phase == "decode" else "disagg"
+    sim, reqs, _ = _prepare_azure(kind)
+    sim.begin_run(reqs)
+    role = next(r for r in sim.order if sim.groups[r].phase == phase)
+    for r in sim.order[:sim.order.index(role)]:
+        sim.pre_role(r)
+        sim.drain_role(r)
+    eng = sim.pre_role(role)
+    packed = eng._pack(20_000_000)
+    I, S, Q = (GE._bucket(eng.instances), GE._bucket(eng.n_slots),
+               GE._bucket(packed["q_ready"].shape[1]))
+    merged = GE._merge([packed], I, Q)
+    drain = GE._Drain(phase, I, S, Q, merged, eng.device)
+    eager = drain.run(merged, replay=False)
+    graph = drain.run(merged)
+    assert drain.graph is not None and int(eager["it"]) > 0
+    for k in eager:
+        assert eager[k].tobytes() == graph[k].tobytes(), k
+
+
+@pytest.mark.parametrize("kind", ["fleetopt", "moe_semantic"])
+def test_graph_drain_equals_numpy_on_card(gen, kind):
+    """A Table E cell through run_fleet_grid with the shape classes:
+    `engine="graph"` on the card against the numpy engine, pool for pool,
+    and both rows equal to fleet_grid.json's."""
+    cell = _grid_cell(kind)
+    committed = json.loads((ROOT / "benchmarks" / "results"
+                            / "fleet_grid.json").read_text())
+    runs = {}
+    for engine in ("numpy", "graph"):
+        scen = PFB.grid_scenarios([cell], engine=engine, device="cuda")
+        out, = run_fleet_grid(scen, pad_floors=PFB.SHAPE_CLASSES
+                              if engine == "graph" else None)
+        runs[engine] = (scen[0][0], json.loads(json.dumps(
+            PFB.grid_row(cell[0], out))))
+    (ref, ref_row), (sim, row) = runs["numpy"], runs["graph"]
+    assert fleet_parity([ref], [sim]) == []
+    assert row == ref_row and row in committed

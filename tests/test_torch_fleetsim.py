@@ -8,8 +8,10 @@ own claim on the port, and that the port's reports, meter banks, pool
 summaries, schedules and per-request outcomes equal the reference's
 exactly (`_plain` compares floats by their bits).  The nine `unconstrained`
 rows of benchmarks/results/fleet_sim.json are reproduced field for field,
-and the compiled drain the port does not have yet (`engine="jax"`, ROADMAP
-A 2c) raises NotImplementedError everywhere it could be asked for.
+and engine names the port does not serve (the reference's "jax", and
+"torch") raise NotImplementedError everywhere they could be asked for;
+the compiled drain the port does serve (`engine="graph"`, ROADMAP A 2c) is
+held in tests/test_torch_graph_engine.py.
 """
 import copy
 import dataclasses
@@ -859,8 +861,10 @@ def test_run_fleet_grid_numpy_matches_reference_and_run():
 
 @pytest.mark.parametrize("engine", ["jax", "torch"])
 def test_compiled_drain_is_not_ported_yet(engine):
-    """No engine but numpy drains a port fleet, and none falls back to it:
-    every entry point that takes `engine` raises, naming ROADMAP A 2c."""
+    """An engine name the port does not serve drains no port fleet, and
+    none falls back to numpy: every entry point that takes `engine`
+    raises, naming ROADMAP A 2c (whose compiled drain the port serves as
+    "graph")."""
     F, W, P, M = PORT.fleetsim, PORT.workloads, PORT.profiles, \
         PORT.modelspec
     args = ("fleetopt", W.AZURE, P.H100_LLAMA70B, M.LLAMA31_70B)

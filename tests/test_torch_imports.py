@@ -45,7 +45,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.multipool, repro_torch.core.slo, "
             "repro_torch.serving.telemetry, repro_torch.serving.energy, "
             "repro_torch.serving.engine, repro_torch.serving.autoscale, "
-            "repro_torch.serving.soa, repro_torch.serving.fleetsim; "
+            "repro_torch.serving.soa, repro_torch.serving.fleetsim, "
+            "repro_torch.serving.graph_engine; "
             f"sys.path.insert(0, {str(ROOT / 'tools')!r}); "
             "import port_fleet_bench; "
             "print(sorted(m for m in sys.modules "

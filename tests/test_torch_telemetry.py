@@ -17,6 +17,14 @@ decode residual is a 1.5e-20 J rounding remainder over a 1e-12 floor.  The
 port's hypothesis twin holds the port to 1e-9 wherever the reference meets
 it and to the reference's exact residual where it does not;
 `test_c6_zero_width_window_residual_equals_reference` pins that example.
+
+Reference finding C11: `charge_handoff` never clamps its window fraction,
+so a 1e-8 s transfer ending at t = 0.5 s attributes 1 + 5e-9 of its bytes
+to the window and `conservation_violations` reports `m_handoff_bytes >
+handoff_bytes`.  The property holds the port to no violation wherever the
+reference has none, and to the reference's own violations, of C11's kind
+only, where it has some; `test_c11_handoff_fraction_equals_reference`
+pins that example.
 """
 import copy
 import dataclasses
@@ -332,6 +340,10 @@ def _straddle(pk, ops, t0, span, dispatch_s):
 
 C6_EXAMPLE = dict(ops=[("prefill", 1, 0.0), ("handoff", 1, 0.0)], t0=0.0,
                   span=0.0, dispatch_s=0.0)
+C11_EXAMPLE = dict(ops=[("decode", 1, 0.0), ("idle", 1, 0.5),
+                        ("handoff", 1, 1e-08)], t0=0.0, span=1.0,
+                   dispatch_s=0.0)
+C11_VIOLATION = "m_handoff_bytes > handoff_bytes"
 
 
 @settings(max_examples=40, deadline=None)
@@ -342,16 +354,22 @@ C6_EXAMPLE = dict(ops=[("prefill", 1, 0.0), ("handoff", 1, 0.0)], t0=0.0,
        t0=st.floats(0.0, 5.0), span=st.floats(0.0, 5.0),
        dispatch_s=st.sampled_from([0.0, 5e-4]))
 @example(**C6_EXAMPLE)
+@example(**C11_EXAMPLE)
 def test_property_straddling_charges_conserve(ops, t0, span, dispatch_s):
     """Any charge sequence against any measurement window: the port's
     meter, audit, reconciliation and charge channel equal the reference's;
-    conservation holds; every phase reconciles within 1e-9 wherever the
-    reference does, and to the reference's own residual where it does not
-    (C6)."""
+    conservation holds wherever the reference's does, and elsewhere the
+    port reports exactly the reference's violations, each of C11's kind;
+    every phase reconciles within 1e-9 wherever the reference does, and to
+    the reference's own residual where it does not (C6)."""
     (jm, jviol, jrows, jrec), (m, viol, rows, rec) = _both(
         lambda pk: _straddle(pk, ops, t0, span, dispatch_s))
     assert_same((jm, jviol, jrows, jrec), (m, viol, rows, rec))
-    assert viol == []
+    if jviol == []:
+        assert viol == []
+    else:
+        assert viol == jviol
+        assert all(v.startswith(C11_VIOLATION) for v in viol), viol
     for phase, row in rows.items():
         assert row["rel_err"] < 1e-9 or \
             row["rel_err"] == jrows[phase]["rel_err"] >= 1e-9, (phase, row)
@@ -370,6 +388,20 @@ def test_c6_zero_width_window_residual_equals_reference():
     assert rows["decode"]["rel_err"] == jrows["decode"]["rel_err"] > 1e-9
     assert all(row["rel_err"] < 1e-9 for phase, row in rows.items()
                if phase != "decode")
+
+
+def test_c11_handoff_fraction_equals_reference():
+    """The reference's unclamped handoff fraction: a 1e-8 s transfer ending
+    at t = 0.5 s puts 1 + 5e-9 of its 1024 bytes in the window.  The port's
+    meter reports the same violation and the same windowed bytes, to the
+    bit, and reconciles every phase within 1e-9."""
+    (jm, jviol, jrows, _), (m, viol, rows, _) = _both(
+        lambda pk: _straddle(pk, **C11_EXAMPLE))
+    assert viol == jviol == [f"{C11_VIOLATION} (rows [0])"]
+    assert m.m_handoff_bytes.hex() == jm.m_handoff_bytes.hex()
+    assert m.m_handoff_bytes == 1024.0000051453535 > m.handoff_bytes == 1024.0
+    assert_same(jrows, rows)
+    assert all(row["rel_err"] < 1e-9 for row in rows.values())
 
 
 # --- scalar vs SoA streams (tests/serving/test_trace_parity.py) ------------

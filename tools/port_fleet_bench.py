@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The fleet tables of the quick benches, from the port, held to the
-committed baselines.
+"""The fleet tables of the quick benches and Table E, from the port, held
+to the committed baselines.
 
-  PYTHONPATH=src python3 tools/port_fleet_bench.py [--only sim|diurnal]
+  PYTHONPATH=src python3 tools/port_fleet_bench.py [--only sim|diurnal|grid]
+                                                   [--engine numpy|graph]
+                                                   [--device cuda|cpu]
                                                    [--out DIR]
 
 A port-side twin of `benchmarks/fleet_sim_bench.py --quick` (Table A:
@@ -10,20 +12,32 @@ unconstrained H100 cells of azure-conv / lmsys-chat / agent-heavy x homo /
 two_pool / fleetopt; Table B: SLO-constrained H100 / H200 / B200 x homo /
 fleetopt / multipool on azure-conv; Table C: disaggregation; Table D:
 semantic and MoE pools) and of `benchmarks/fleet_diurnal_bench.py --quick`
-(Table F: a compressed diurnal day, static vs autoscaled).  It builds each
-row as those benches do, importing only `repro_torch`, writes
-{"meta", "rows"} as `fleet_sim.json` and `fleet_diurnal.json` under DIR
+(Table F: a compressed diurnal day, static vs autoscaled), and of
+`benchmarks/fleet_grid_bench.py` (Table E: the 260-cell Azure sensitivity
+grid, misroute x dispatch floor x chip x pool count, at its defaults:
+400 requests, seed 0, 4 scenarios per batched drain).  It builds each row
+as those benches do, importing only `repro_torch`, writes {"meta", "rows"}
+as `fleet_sim.json`, `fleet_diurnal.json` and `fleet_grid.json` under DIR
 (default build/port_fleet_bench/), and compares every row, field for
-field, with benchmarks/results/fleet_sim.json (28 rows) and
-fleet_diurnal.json (12 rows).  Prints each table's host wall and, last, a
-JSON summary; exits 1 if any field of any row differs.  Host work only:
-no tensor, no card.
+field, with benchmarks/results/fleet_sim.json (28 rows),
+fleet_diurnal.json (12 rows) and fleet_grid.json (260 rows).  Prints each
+table's wall and, last, a JSON summary; exits 1 if any field of any row
+differs.
+
+Tables A-D and F drain in the numpy engine on the host.  Table E drains
+in `--engine` (default numpy; "graph" is the compiled drain of
+serving.graph_engine, on `--device`, default cuda, with the reference
+bench's shape classes).  Each wall is named for what it measures: "host
+wall" where the pools drain in numpy or on the CPU, "card wall" where the
+graph engine drains on the card, printed beside the card's name and power
+limit (nvidia-smi).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -32,16 +46,18 @@ import numpy as np
 
 from repro_torch.core import ladder_windows, size_to_slo
 from repro_torch.core.autoscale import AutoscalePolicy
-from repro_torch.core.hardware import H100
+from repro_torch.core.hardware import B200, GB200, H100, H200
 from repro_torch.core.modelspec import LLAMA31_70B, QWEN3_235B_A22B
 from repro_torch.core.moe import moe_profile
-from repro_torch.core.power import H100_POWER
-from repro_torch.core.profiles import (B200_LLAMA70B_FLEET, H100_LLAMA70B,
-                                       H200_LLAMA70B)
+from repro_torch.core.power import (B200_POWER, GB200_POWER, H100_POWER,
+                                    H200_POWER)
+from repro_torch.core.profiles import (B200_LLAMA70B_FLEET, GB200_LLAMA70B,
+                                       H100_LLAMA70B, H200_LLAMA70B)
 from repro_torch.core.slo import SLOSpec, size_to_slo_spec
 from repro_torch.core.topospec import TopologySpec
 from repro_torch.core.workloads import AGENT, AZURE, LMSYS, DiurnalProfile
-from repro_torch.serving import (prepare_spec, sample_diurnal_trace,
+from repro_torch.serving import (prepare_spec, prepare_topology,
+                                 run_fleet_grid, sample_diurnal_trace,
                                  simulate_topology)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +78,26 @@ DIURNAL = dict(peak_rate=250.0, day_s=240.0, slo_requests=1500, seed=0,
                quick=True)
 DIURNAL_GENERATIONS = (("H100", H100_LLAMA70B), ("B200", B200_LLAMA70B_FLEET))
 PEAK_FRAC = 0.9
+
+# Table E (benchmarks/fleet_grid_bench.py): its axes, defaults and the
+# (row_floor, n_slots, queue) shape classes its compiled drains pad to —
+# the reference tuned the list so the 260 cells share ~9 drain shapes
+CHIPS = (("H100", H100, H100_POWER, H100_LLAMA70B),
+         ("H200", H200, H200_POWER, H200_LLAMA70B),
+         ("B200", B200, B200_POWER, B200_LLAMA70B_FLEET),
+         ("GB200", GB200, GB200_POWER, GB200_LLAMA70B))
+MISROUTES = (0.0, 0.02, 0.05, 0.08, 0.10, 0.15)
+DISPATCH_MS = (0.0, 1.0, 2.0, 5.0, 10.0)
+B_SHORTS = (2048, 4096, 8192)
+GAMMAS = (1.5, 2.0, 3.0)
+K_POOLS = (2, 3, 4)
+GRID_WIDTH, GRID_REQUESTS = 4, 400
+SHAPE_CLASSES = ((256, 32, 4),      # MoE expert pools, tiny slots/queues
+                 (128, 48, 24),     # tail stages: second/overflow pools
+                 (128, 96, 24),     # small dense pools
+                 (64, 256, 64),     # semantic/16K first pools
+                 (32, 768, 96),     # fleetopt short pools, 8K ladder
+                 (8, 1536, 96))     # b_short=2048 / 4K-ladder slot monsters
 
 
 def _table_a():
@@ -211,6 +247,132 @@ def _table_f():
     return rows
 
 
+def grid_cells():
+    """(row-label dict, kind, profile, model, prepare kwargs) per cell."""
+    cells = []
+    for gen, chip, power, prof in CHIPS:
+        moe = moe_profile(QWEN3_235B_A22B, chip, power, tp=8)
+
+        def cell(kind, profile, model, **kw):
+            cells.append((dict(table="grid", generation=gen,
+                               workload=AZURE.name, topology=kind,
+                               model=model.name,
+                               dispatch_ms=float(kw.get("dispatch_ms", 0.0)),
+                               misroute_rate=float(
+                                   kw.get("misroute_rate", 0.0)),
+                               b_short=int(kw.get("b_short", 0)),
+                               gamma=float(kw.get("gamma", 0.0)),
+                               k_pools=len(kw.get("windows", ()))),
+                          kind, profile, model, kw))
+
+        for mr in MISROUTES:
+            for d in DISPATCH_MS:
+                cell("moe_semantic", moe, QWEN3_235B_A22B, b_short=4096,
+                     misroute_rate=mr, dispatch_ms=d)
+            for bs in B_SHORTS:
+                cell("semantic_fleetopt", prof, LLAMA31_70B, b_short=bs,
+                     misroute_rate=mr)
+        for g in GAMMAS:
+            for bs in B_SHORTS:
+                cell("fleetopt", prof, LLAMA31_70B, b_short=bs, gamma=g)
+        for d in DISPATCH_MS:
+            cell("moe_pool", moe, QWEN3_235B_A22B, dispatch_ms=d)
+        for k in K_POOLS:
+            cell("multipool", prof, LLAMA31_70B,
+                 windows=ladder_windows(k))
+    return cells
+
+
+def grid_row(label, cell) -> dict:
+    """One Table E row, rounded as the reference bench rounds it."""
+    f = cell.report["fleet"]
+    return dict(label,
+                analytical=round(cell.analytical_tok_per_watt, 3),
+                simulated=round(cell.sim_decode_tok_per_watt, 3),
+                all_in=round(cell.sim_tok_per_watt, 3),
+                delta_pct=round(cell.delta_pct, 1),
+                completed=f["completed"],
+                escalations=f["escalations"],
+                migrations=f["migrations"])
+
+
+def grid_scenarios(cells, *, engine="numpy", device="cuda"):
+    """`prepare_topology` triples of `cells` on Azure traffic."""
+    return [prepare_topology(kind, AZURE, prof, mdl,
+                             n_requests=GRID_REQUESTS, seed=SEED,
+                             engine=engine, device=device, **kw)
+            for _, kind, prof, mdl, kw in cells]
+
+
+def grid_rows(cells, *, engine="numpy", device="cuda"):
+    """Table E rows of `cells`, GRID_WIDTH scenarios per `run_fleet_grid`
+    call (graph drains padded to SHAPE_CLASSES, as the reference's)."""
+    rows = []
+    for i in range(0, len(cells), GRID_WIDTH):
+        chunk = cells[i:i + GRID_WIDTH]
+        scenarios = grid_scenarios(chunk, engine=engine, device=device)
+        floors = SHAPE_CLASSES if engine == "graph" else None
+        rows += [grid_row(label, cell) for (label, *_), cell in zip(
+            chunk, run_fleet_grid(scenarios, pad_floors=floors))]
+    return rows
+
+
+def _by(rows, **match):
+    out = [r for r in rows
+           if all(r.get(k) == v for k, v in match.items())]
+    assert out, match
+    return out
+
+
+def derive(rows) -> str:
+    """Sensitivity one-liners: each headline claim with its measured
+    neighborhood boundaries."""
+    fo = {(r["generation"], r["gamma"], r["b_short"]): r["simulated"]
+          for r in _by(rows, topology="fleetopt")}
+    gain = [fo[("B200", g, b)] / fo[("H100", g, b)]
+            for g in GAMMAS for b in B_SHORTS]
+    # misroute rate at which the semantic split stops beating plain
+    # fleetopt (same chip, the paper's 4K boundary)
+    fo_ref = fo[("H100", 2.0, 4096)]
+    sem = sorted((r["misroute_rate"], r["simulated"]) for r in
+                 _by(rows, topology="semantic_fleetopt",
+                     generation="H100", b_short=4096))
+    crossover = next((mr for mr, v in sem if v < fo_ref), None)
+    cross_txt = f">{sem[-1][0]:g}" if crossover is None else f"{crossover:g}"
+    moe = {(r["generation"], r["dispatch_ms"]): r["simulated"]
+           for r in _by(rows, topology="moe_pool")}
+    slope = moe[("H100", DISPATCH_MS[-1])] / moe[("H100", 0.0)]
+    mp = {(r["generation"], r["k_pools"]): r["simulated"]
+          for r in _by(rows, topology="multipool")}
+    best_k = {gen: max(K_POOLS, key=lambda k: mp[(gen, k)])
+              for gen, *_ in CHIPS}
+    return (f"B200/H100 fleetopt gain across gamma x b_short: "
+            f"{min(gain):.2f}-{max(gain):.2f}x; "
+            f"semantic_fleetopt(H100,4K) falls below fleetopt at misroute "
+            f"{cross_txt}; "
+            f"MoE tok/W at {DISPATCH_MS[-1]:g}ms dispatch = {slope:.2f}x "
+            f"of 0ms; best K per chip: "
+            + ", ".join(f"{g}={k}" for g, k in best_k.items()))
+
+
+def _grid_tables(engine, device):
+    """(family, function making its rows) per Table E family, in the
+    bench's order."""
+    fams = {}
+    for c in grid_cells():
+        fams.setdefault(c[1], []).append(c)
+    return tuple((fam, lambda cells=cells: grid_rows(
+        cells, engine=engine, device=device)) for fam, cells in fams.items())
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
 BENCHES = {
     "sim": ("fleet_sim.json",
             dict(n_requests=N_REQUESTS, slo_requests=SLO_REQUESTS, seed=SEED,
@@ -218,6 +380,7 @@ BENCHES = {
             (("unconstrained", _table_a), ("slo", _table_b),
              ("disagg", _table_c), ("model_hetero", _table_d))),
     "diurnal": ("fleet_diurnal.json", DIURNAL, (("diurnal", _table_f),)),
+    "grid": ("fleet_grid.json", None, None),
 }
 
 
@@ -239,6 +402,10 @@ def _diff(got, want):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=tuple(BENCHES), default=None)
+    ap.add_argument("--engine", choices=("numpy", "graph"), default="numpy",
+                    help="Table E's drain (the other tables: numpy)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the graph engine drains")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "port_fleet_bench")
     args = ap.parse_args(argv)
@@ -247,23 +414,39 @@ def main(argv=None) -> int:
     for name, (fname, meta, tables) in BENCHES.items():
         if args.only not in (None, name):
             continue
+        wall_name, card = "host wall", None
+        if name == "grid":
+            meta = dict(n_requests=GRID_REQUESTS, seed=SEED,
+                        width=GRID_WIDTH, engine=args.engine,
+                        device=args.device if args.engine == "graph"
+                        else "host")
+            tables = _grid_tables(args.engine, args.device)
+            if args.engine == "graph" and args.device == "cuda":
+                wall_name, card = "card wall", card_line()
         t0, rows, walls = time.perf_counter(), [], {}
         for table, build in tables:
             t = time.perf_counter()
             rows += build()
             walls[table] = round(time.perf_counter() - t, 3)
-            print(f"{fname} {table}: host wall {walls[table]} s")
+            print(f"{fname} {table}: {wall_name} {walls[table]} s"
+                  + (f" ({card})" if card else ""))
         doc = {"meta": meta, "rows": rows}
         (args.out / fname).write_text(json.dumps(doc, indent=1))
         want = json.loads((RESULTS / fname).read_text())
+        if isinstance(want, list):      # fleet_grid.json: rows, no meta
+            want = {"meta": meta, "rows": want}
         diffs = _diff(rows, want["rows"])
         if meta != want["meta"]:
             diffs.append(f"meta {meta} != {want['meta']}")
         for d in diffs:
             print(f"{fname}: {d}")
+        if name == "grid":
+            print(f"{fname} derived: {derive(rows)}")
         summary[name] = dict(rows=len(rows), baseline_rows=len(want["rows"]),
-                             differences=len(diffs), table_wall_s=walls,
-                             wall_s=round(time.perf_counter() - t0, 3))
+                             differences=len(diffs), wall=wall_name,
+                             table_wall_s=walls,
+                             wall_s=round(time.perf_counter() - t0, 3),
+                             **({"card": card} if card else {}))
     print(json.dumps(summary))
     return 1 if any(s["differences"] for s in summary.values()) else 0
 
