@@ -187,6 +187,29 @@ Phases, in order; any failure exits non-zero:
               power) must fail 12a's gate on the fleetopt cells; 12e the
               graph card wall and the numpy host wall per family, named,
               beside the card's name and power limit;
+  13. search  the topology search of tools/port_fleet_bench.py --only
+              topology (the quick topology_search_bench: azure-conv, 1500
+              requests, budget 10, seed 0, over one frozen trace) run with
+              engine="graph" on the card and engine="numpy" on the host:
+              13a the 5 rows (4 hand-built fleets and the searched one)
+              equal benchmarks/results/topology_search.json's, meta
+              included, under both; the search's history equals numpy's
+              entry for entry (eval, spec_hash, label, score, compliant,
+              error), no entry carries an error, evaluations, restarts and
+              the winner equal; every spec sized in either run (the
+              hand-built ones and every evaluation) gives equal
+              SLOSizingResults: plan.instances, every round's instances,
+              violators and budget and compliance exactly, the measured
+              TTFT p99, tok/W and round metrics at rtol 1e-9; and the same
+              for three fleet shapes the search's budget does not reach (a
+              disaggregated ladder, the small-model rung, a chip-mixed
+              ladder); 13b 12d's planted fault on the graph drain of the
+              search's seed spec (multipool K=3) must fail 13a's gate; 13c
+              the graph card wall and the numpy host wall of the search,
+              the CUDA graphs it captured and the SLO rounds of each spec,
+              beside the card's name and power limit; 13d every suite of
+              tools/port_paper_tables.py on the card's host, each
+              returning rows, its derived string printed;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -226,8 +249,13 @@ from repro_torch.kernels import wkv6 as WK  # noqa: E402
 from repro_torch.kernels.ref import (flash_decode_int8_ref,  # noqa: E402
                                      flash_decode_ref, mamba_scan_ref,
                                      wkv6_ref)
-from repro_torch.core.modelspec import LLAMA31_70B  # noqa: E402
-from repro_torch.core.profiles import H100_LLAMA70B  # noqa: E402
+from repro_torch.core import topo_search as TS  # noqa: E402
+from repro_torch.core.modelspec import LLAMA31_8B, LLAMA31_70B  # noqa: E402
+from repro_torch.core.profiles import (B200_LLAMA70B_FLEET,  # noqa: E402
+                                       H100_LLAMA70B, H200_LLAMA70B,
+                                       computed_profile)
+from repro_torch.core.routing import LONG_WINDOW  # noqa: E402
+from repro_torch.core.slo import SLOSpec, size_to_slo_spec  # noqa: E402
 from repro_torch.core.topospec import TopologySpec  # noqa: E402
 from repro_torch.core.workloads import WORKLOADS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -243,6 +271,7 @@ from repro_torch.serving import graph_engine as GE  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
 import port_fleet_bench as PFB  # noqa: E402
+import port_paper_tables as PPT  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 flash_decode, mamba_scan, wkv6 = FD.flash_decode, MS.mamba_scan, WK.wkv6
@@ -2231,6 +2260,183 @@ def phase_drain():
     return walls
 
 
+# ---- phase 13: the topology search, drained on the card -------------------
+
+HISTORY_KEYS = ("eval", "spec_hash", "label", "score", "compliant", "error")
+ROUND_EXACT = ("round", "instances", "violators", "budget")
+ROUND_CLOSE = ("ttft_p99_s", "analytical_tok_per_watt",
+               "measured_tok_per_watt", "measured_decode_tok_per_watt",
+               "tpot_p99_ms", "e2e_p99_s")
+SIZED_CLOSE = ("ttft_p99_s", "slo_tok_per_watt",
+               "measured_decode_tok_per_watt")
+
+
+def search_shapes():
+    """Fleet shapes the quick search does not reach at its budget, each a
+    ladder of the search's genome: a disaggregated ladder (prefill-phase
+    pools and their KV handoffs), the small-model rung and a chip-mixed
+    ladder."""
+    p = H100_LLAMA70B
+    small = computed_profile(LLAMA31_8B, p.chip, p.power_model, tp=1)
+    ladder = (4096, 16384, LONG_WINDOW)
+    return {"disagg": TS.ladder_spec((4096, LONG_WINDOW), [p] * 2,
+                                     LLAMA31_70B, disagg=True),
+            "small-model rung": TS.ladder_spec(
+                ladder, [p] * 3, LLAMA31_70B, small_model=LLAMA31_8B,
+                small_profile=small),
+            "chip mix": TS.ladder_spec(
+                ladder, [p, B200_LLAMA70B_FLEET, H200_LLAMA70B],
+                LLAMA31_70B)}
+
+
+def close(a, b):
+    return math.isclose(a, b, rel_tol=DRAIN_RTOL, abs_tol=DRAIN_ATOL)
+
+
+def sizing_diffs(ref, got):
+    """13a's gate on one spec's two `SLOSizingResult`s: the plan's
+    instances, every round's integers and compliance exactly, the measured
+    numbers at DRAIN_RTOL."""
+    bad = []
+    if got.plan.instances != ref.plan.instances:
+        bad.append(f"plan.instances {ref.plan.instances} !="
+                   f" {got.plan.instances}")
+    if got.compliant != ref.compliant:
+        bad.append(f"compliant {ref.compliant} != {got.compliant}")
+    if len(got.rounds) != len(ref.rounds):
+        bad.append(f"rounds {len(ref.rounds)} != {len(got.rounds)}")
+    for a, b in zip(ref.rounds, got.rounds):
+        bad += [f"round {a.round} {k}" for k in ROUND_EXACT
+                if getattr(a, k) != getattr(b, k)]
+        bad += [f"round {a.round} {k} {getattr(a, k)!r} !="
+                f" {getattr(b, k)!r}" for k in ROUND_CLOSE
+                if not close(getattr(a, k), getattr(b, k))]
+    bad += [f"{k} {getattr(ref, k)!r} != {getattr(got, k)!r}"
+            for k in SIZED_CLOSE if not close(getattr(ref, k),
+                                               getattr(got, k))]
+    return bad
+
+
+def search_diffs(ref, got):
+    """13a's gate on two `TopologySearchResult`s: the history entry for
+    entry, no entry with an error, the same counts and winner."""
+    bad = []
+    ha = [{k: h[k] for k in HISTORY_KEYS} for h in ref.history]
+    hb = [{k: h[k] for k in HISTORY_KEYS} for h in got.history]
+    if len(ha) != len(hb):
+        bad.append(f"history has {len(hb)} entries, numpy's {len(ha)}")
+    bad += [f"history {a} != {b}" for a, b in zip(ha, hb) if a != b]
+    bad += [f"eval {h['eval']} raised: {h['error']}" for h in hb + ha
+            if h["error"] is not None]
+    for k in ("evaluations", "restarts"):
+        if getattr(ref, k) != getattr(got, k):
+            bad.append(f"{k} {getattr(ref, k)} != {getattr(got, k)}")
+    if ref.best_spec.spec_hash != got.best_spec.spec_hash:
+        bad.append("best spec differs")
+    return bad
+
+
+@contextlib.contextmanager
+def sizing_log(log_):
+    """Every `size_to_slo_spec` call of the search, by spec hash:
+    (spec, result)."""
+    real = TS.size_to_slo_spec
+
+    def sized(spec, *args, **kw):
+        res = log_[spec.spec_hash] = (spec, real(spec, *args, **kw))
+        return res[1]
+
+    with patched(TS, "size_to_slo_spec", sized):
+        yield
+
+
+def phase_search():
+    """13a-13d, as the module docstring says.  Launches no kernel."""
+    card = PFB.card_line()
+    want = json.loads((ROOT / "benchmarks" / "results"
+                       / "topology_search.json").read_text())
+    bad, runs = [], {}
+    for engine in ("numpy", "graph"):
+        n_graphs, evals = len(GE._DRAIN_CACHE), {}
+        t0 = time.perf_counter()
+        with sizing_log(evals):
+            rows, sized, sr = PFB.search_run(engine=engine, device=DEVICE)
+        wall = time.perf_counter() - t0
+        runs[engine] = dict(sized=sized, sr=sr, evals=evals, wall=wall,
+                            graphs=len(GE._DRAIN_CACHE) - n_graphs)
+        diffs = PFB._diff(rows, want["rows"])
+        if PFB.SEARCH != want["meta"]:
+            diffs.append(f"meta {PFB.SEARCH} != {want['meta']}")
+        log(f"  13a {engine}: {PFB.search_derived(rows)}; rows vs"
+            f" topology_search.json: {diffs or 'equal'}")
+        bad += [f"13a {engine}: {d}" for d in diffs]
+    a, b = runs["numpy"], runs["graph"]
+    diffs = search_diffs(a["sr"], b["sr"])
+    for kind, res in a["sized"].items():
+        diffs += [f"{kind}: {d}" for d in sizing_diffs(res, b["sized"][kind])]
+    for h, (spec, res) in a["evals"].items():
+        got = b["evals"].get(h)
+        diffs += [f"{spec.label}: not evaluated under graph"] if got is None \
+            else [f"{spec.label}: {d}" for d in sizing_diffs(res, got[1])]
+    log(f"  13a graph vs numpy: {len(a['sr'].history)} evaluations,"
+        f" {a['sr'].restarts} restarts, {len(a['sized'])} hand-built specs:"
+        f" {diffs or 'history, results and sizings equal, no error'}")
+    bad += [f"13a: {d}" for d in diffs]
+
+    # the shapes the search's budget does not reach, on the same trace
+    trace = sample_trace(WORKLOADS["azure-conv"], PFB.SEARCH["slo_requests"],
+                         seed=PFB.SEARCH["seed"], max_total=LONG_WINDOW)
+    shapes = {}
+    for name, spec in search_shapes().items():
+        res = {engine: size_to_slo_spec(
+            spec, WORKLOADS["azure-conv"], slo=SLOSpec(),
+            n_requests=PFB.SEARCH["slo_requests"], seed=PFB.SEARCH["seed"],
+            trim=False, engine=engine, trace=trace, device=DEVICE)
+            for engine in ("numpy", "graph")}
+        diffs = sizing_diffs(res["numpy"], res["graph"])
+        shapes[name] = len(res["graph"].rounds)
+        log(f"  13a {name} ({spec.label}): {res['graph'].plan.instances}"
+            f" instances, {len(res['graph'].rounds)} rounds, compliant"
+            f" {res['graph'].compliant}; graph vs numpy:"
+            f" {diffs or 'equal'}")
+        bad += [f"13a {name}: {d}" for d in diffs]
+
+    # 13b: the planted fault, on the graph drain of the search's seed spec
+    seed_spec, ref = a["evals"][a["sr"].history[0]["spec_hash"]]
+    with no_coast_idle():
+        faulty = size_to_slo_spec(
+            seed_spec, WORKLOADS["azure-conv"], slo=SLOSpec(),
+            n_requests=PFB.SEARCH["slo_requests"], seed=PFB.SEARCH["seed"],
+            trim=False, engine="graph", trace=trace, device=DEVICE)
+    caught = sizing_diffs(ref, faulty)
+    log(f"  13b planted fault (coast without idle power) on"
+        f" {seed_spec.label}: {len(caught)} failures, e.g. {caught[:3]}")
+    if not caught:
+        bad.append("13b: the planted fault passed 13a's gate")
+
+    # 13c: walls, captures and rounds
+    rounds = {spec.label: len(res.rounds)
+              for spec, res in b["evals"].values()}
+    rounds.update({kind: len(res.rounds) for kind, res in b["sized"].items()})
+    log(f"  13c search: graph card wall {b['wall']:.2f} s [{card}],"
+        f" {b['graphs']} CUDA graphs captured; numpy host wall"
+        f" {a['wall']:.2f} s; SLO rounds per spec {json.dumps(rounds)};"
+        f" shapes {json.dumps(shapes)}")
+
+    # 13d: the paper's analytical tables on the card's host
+    t0 = time.perf_counter()
+    for name, rows, derived, _ in PPT.run_suites():
+        log(f"  13d {name}: {len(rows or ())} rows; {derived}")
+        if not rows:
+            bad.append(f"13d {name}: {derived if rows is None else 'no rows'}")
+    log(f"  13d host wall {time.perf_counter() - t0:.2f} s")
+    if bad:
+        raise SystemExit(f"phase 13: {bad}")
+    return dict(graph_card_wall_s=round(b["wall"], 3),
+                numpy_host_wall_s=round(a["wall"], 3),
+                graphs_captured=b["graphs"])
+
+
 def load_model(name):
     cfg = get_config(name)
     t0 = time.perf_counter()
@@ -2349,6 +2555,11 @@ def main() -> int:
     t12 = time.perf_counter()
     phase_drain()
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    log("[13] search: the topology search drained by the graph engine vs"
+        " numpy, and the paper's tables")
+    t13 = time.perf_counter()
+    phase_search()
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -3,7 +3,7 @@
 `ModelSpec` is the *analytical* view of a model: just enough geometry for
 the serving meter to price a prefill (`streamed_params`) and for a
 computed profile to size weight streaming and KV bytes per token (the MoE
-lever of `core.moe`).  The executable
+lever of `core.moe`, Table 2).  The executable
 architectures live in `repro_torch.models`; `ArchConfig.analytical_spec()`
 bridges each of them into this form.
 """
@@ -64,7 +64,7 @@ class ModelSpec:
 
 
 # The paper's own models (Table 2 / §4): the dense Llama-3.1 family and the
-# MoE of the §3.2 lever.
+# two MoEs of the §3.2 lever.
 LLAMA31_8B = ModelSpec("Llama-3.1-8B", n_params=8.03e9, n_layers=32,
                        n_kv_heads=8, head_dim=128)
 LLAMA31_70B = ModelSpec("Llama-3.1-70B", n_params=70.6e9, n_layers=80,
@@ -73,3 +73,10 @@ LLAMA31_405B = ModelSpec("Llama-3.1-405B", n_params=405e9, n_layers=126,
                          n_kv_heads=8, head_dim=128)
 QWEN3_235B_A22B = ModelSpec("Qwen3-235B-A22B", n_params=235e9, n_layers=94,
                             n_kv_heads=4, head_dim=128, n_active_params=22e9)
+DEEPSEEK_V3 = ModelSpec("DeepSeek-V3", n_params=671e9, n_layers=61,
+                        n_kv_heads=1, head_dim=576,  # MLA compressed KV
+                        dtype_bytes=1.0, n_active_params=37e9)
+
+PAPER_MODELS = {m.name: m for m in
+                (LLAMA31_8B, LLAMA31_70B, LLAMA31_405B, QWEN3_235B_A22B,
+                 DEEPSEEK_V3)}

@@ -39,6 +39,10 @@ class PowerModel:
         logistic = self.p_range_w / (1.0 + np.exp(-self.k * (np.log2(safe_b) - self.x0)))
         return np.where(b <= 0, self.p_idle_w, self.p_idle_w + logistic)
 
+    def saturation_b(self) -> float:
+        """Half-saturation concurrency 2**x0 (paper: ~18 seqs on H100)."""
+        return 2.0 ** self.x0
+
     @classmethod
     def from_tdp_fraction(cls, chip: ChipSpec, x0: float = 4.2, k: float = 1.0,
                           quality: Optional[str] = None) -> "PowerModel":

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
 
@@ -25,6 +25,21 @@ from .modelspec import LLAMA31_70B, ModelSpec
 from .power import (B200_POWER, GB200_POWER, H100_POWER, H200_POWER,
                     TPU_V5E_POWER, PowerModel)
 from .roofline import DecodeRoofline
+
+
+@runtime_checkable
+class GpuProfile(Protocol):
+    """What `fleet_tpw_analysis` (Appendix B) needs from a profile."""
+
+    name: str
+    chip: ChipSpec
+    power_model: PowerModel
+    roofline: DecodeRoofline
+    tp: int
+
+    def n_max(self, window: float) -> int: ...
+    def power_w(self, n: float) -> float: ...
+    def tokens_per_s(self, n: float, mean_context: float) -> float: ...
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,6 +36,11 @@ class DecodeRoofline:
         n = np.asarray(n, dtype=float)
         return np.where(n > 0, n / (self.tau_ms(n, mean_context) * 1e-3), 0.0)
 
+    @property
+    def x0_from_ratio(self) -> float:
+        """Appendix A: x0 = log2(W / H0) — half-saturation from the roofline."""
+        return float(np.log2(self.w_ms / self.h0_ms))
+
     @staticmethod
     def from_first_principles(*, weight_bytes_per_gpu: float,
                               kv_bytes_per_token_per_gpu: float,

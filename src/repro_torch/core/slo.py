@@ -293,7 +293,7 @@ class _FleetMeasurer:
 
     def __init__(self, spec: TopologySpec, workload: Workload, *,
                  n_requests: int, seed: int, prefill_chunk: int,
-                 engine: str = "numpy", trace=None):
+                 engine: str = "numpy", trace=None, device="cuda"):
         # serving imports are lazy: core stays importable without the
         # serving layer, and the serving layer itself imports core.fleet
         from ..serving import fleetsim as _fs
@@ -302,7 +302,7 @@ class _FleetMeasurer:
         self.spec, self.workload = spec, workload
         self.n_requests, self.seed = n_requests, seed
         self.prefill_chunk = prefill_chunk
-        self.engine = engine
+        self.engine, self.device = engine, device
         # common random numbers: ONE frozen trace for every round/trial
         self._trace = trace if trace is not None else sample_trace(
             workload, n_requests, seed=seed, max_total=spec.max_window)
@@ -337,7 +337,8 @@ class _FleetMeasurer:
             self.workload, pool_overrides=overrides or None)
         sim = self._fs.FleetSim(policy, plan, registry=registry,
                                 prefill_chunk=self.prefill_chunk,
-                                rng_seed=self.seed, engine=self.engine)
+                                rng_seed=self.seed, engine=self.engine,
+                                device=self.device)
         roles = plan_roles(plan)
         # the only sim-relevant quantity a PoolOverride can move is the
         # instance count (the recalibrated MFU/HOL change the *bounds*,
@@ -368,7 +369,7 @@ def size_to_slo_spec(spec: TopologySpec, workload: Workload, *,
                      max_rounds: int = 8, prefill_chunk: int = 512,
                      trim: bool = True,
                      engine: str = "numpy",
-                     trace=None) -> SLOSizingResult:
+                     trace=None, device="cuda") -> SLOSizingResult:
     """Iteratively re-provision `spec` until the *measured* TTFT p99 meets
     the SLO (or `max_rounds` is exhausted — `compliant` reports which).
 
@@ -389,7 +390,9 @@ def size_to_slo_spec(spec: TopologySpec, workload: Workload, *,
     kind-string front end is `size_to_slo`).  Pass `trace=` to share one
     frozen arrival trace across many candidate specs (the topology
     search's common-random-numbers discipline); by default the measurer
-    samples its own trace capped at `spec.max_window`.
+    samples its own trace capped at `spec.max_window`.  `engine` picks
+    every round's drain ("numpy" or "graph"); `device` is where a "graph"
+    drain runs ("cuda" unless the caller asks for the CPU).
 
     After compliance, a **trim phase** (`trim=True`) bisects each grown
     pool's instance count back down toward its round-0 sizing, keeping
@@ -402,7 +405,8 @@ def size_to_slo_spec(spec: TopologySpec, workload: Workload, *,
     """
     measurer = _FleetMeasurer(
         spec, workload, n_requests=n_requests, seed=seed,
-        prefill_chunk=prefill_chunk, engine=engine, trace=trace)
+        prefill_chunk=prefill_chunk, engine=engine, trace=trace,
+        device=device)
     measure = measurer.measure
     kind = spec.kind
 
@@ -608,7 +612,7 @@ def size_to_slo(kind: str, workload: Workload, profile: BaseProfile,
                 dispatch_ms: float = 0.0,
                 trim: bool = True,
                 long_window: Optional[int] = None,
-                engine: str = "numpy") -> SLOSizingResult:
+                engine: str = "numpy", device="cuda") -> SLOSizingResult:
     """Legacy kind-string front end for `size_to_slo_spec`: compile the
     kind to its `TopologySpec` (`TopologySpec.from_kind` is the single
     kind-dispatch site in the codebase) and size that.  The frozen-trace
@@ -626,4 +630,4 @@ def size_to_slo(kind: str, workload: Workload, profile: BaseProfile,
     return size_to_slo_spec(
         spec, workload, slo=slo, n_requests=n_requests, seed=seed,
         max_rounds=max_rounds, prefill_chunk=prefill_chunk, trim=trim,
-        engine=engine)
+        engine=engine, device=device)

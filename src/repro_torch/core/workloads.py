@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -60,6 +60,10 @@ class Workload:
         return self._sample[1]
 
     @property
+    def totals(self) -> np.ndarray:
+        return self.prompts + self.outputs
+
+    @property
     def mean_output(self) -> float:
         return float(self.outputs.mean())
 
@@ -71,6 +75,33 @@ class Workload:
     def mean_context(self) -> float:
         """Fleet-wide mean KV length during decode (prompt + output/2)."""
         return float((self.prompts + self.outputs / 2.0).mean())
+
+    def frac_total_leq(self, bound: float) -> float:
+        """P(prompt + output <= bound)."""
+        return float((self.totals <= bound).mean())
+
+    def quantile_total(self, q: float) -> float:
+        return float(np.quantile(self.totals, q))
+
+    # --- pool views (context-length routing) ---------------------------
+    def split_by_total(self, boundary: float) -> Dict[str, dict]:
+        """Statistics for short (total <= boundary) vs long sub-traffic."""
+        mask = self.totals <= boundary
+        out = {}
+        for key, m in (("short", mask), ("long", ~mask)):
+            if m.sum() == 0:
+                out[key] = dict(frac=0.0, mean_context=0.0, mean_output=0.0,
+                                mean_prompt=0.0, p99_total=0.0)
+                continue
+            p, o = self.prompts[m], self.outputs[m]
+            out[key] = dict(
+                frac=float(m.mean()),
+                mean_context=float((p + o / 2.0).mean()),
+                mean_output=float(o.mean()),
+                mean_prompt=float(p.mean()),
+                p99_total=float(np.quantile(p + o, 0.99)),
+            )
+        return out
 
     def sample_requests(self, n: int, seed: int = 0) -> np.ndarray:
         """(n, 2) int array of (prompt_len, output_len) for the simulator."""

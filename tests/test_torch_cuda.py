@@ -39,6 +39,11 @@ the decode and the prefill phase, and two Table E cells drained by
 `engine="graph"` on the card equal the numpy engine pool for pool
 (chip_smoke.py's `fleet_parity`: integer and ordering fields exact, meters
 at rtol 1e-9) and the committed rows of benchmarks/results/fleet_grid.json.
+The SLO sizing loop under that drain: the hand-built FleetOpt fleet of the
+topology search bench sized by `size_to_slo_spec(engine="graph",
+device="cuda")` equals numpy's sizing (chip_smoke.py's `sizing_diffs`:
+instances, rounds and compliance exact, the measured numbers at rtol 1e-9)
+and its committed row of benchmarks/results/topology_search.json.
 
 Marked `cuda`; skips where no CUDA device is present.  On a machine with
 an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
@@ -85,7 +90,7 @@ from repro_torch.serving import run_fleet_grid
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
 import port_fleet_bench as PFB  # noqa: E402
-from chip_smoke import fleet_parity  # noqa: E402
+from chip_smoke import fleet_parity, sizing_diffs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -778,3 +783,34 @@ def test_graph_drain_equals_numpy_on_card(gen, kind):
     (ref, ref_row), (sim, row) = runs["numpy"], runs["graph"]
     assert fleet_parity([ref], [sim]) == []
     assert row == ref_row and row in committed
+
+
+def test_slo_sizing_under_graph_drain_equals_numpy_on_card(gen):
+    """The FleetOpt hand-built spec of the quick topology search, sized on
+    one frozen trace by the numpy engine and by the graph drain on the
+    card: equal sizings, and the row equal to the committed one."""
+    from repro_torch.core.modelspec import LLAMA31_70B
+    from repro_torch.core.routing import LONG_WINDOW
+    from repro_torch.core.slo import SLOSpec, size_to_slo_spec
+    from repro_torch.core.topospec import TopologySpec
+    from repro_torch.serving import sample_trace
+    n, seed, wl = PFB.SEARCH["slo_requests"], PFB.SEARCH["seed"], \
+        WORKLOADS["azure-conv"]
+    spec = TopologySpec.from_kind("fleetopt", H100_LLAMA70B, LLAMA31_70B,
+                                  **PFB.SEARCH_KW["fleetopt"])
+    trace = sample_trace(wl, n, seed=seed, max_total=LONG_WINDOW)
+    res = {engine: size_to_slo_spec(
+        spec, wl, slo=SLOSpec(), n_requests=n, seed=seed, trim=False,
+        engine=engine, trace=trace, device="cuda")
+        for engine in ("numpy", "graph")}
+    assert sizing_diffs(res["numpy"], res["graph"]) == []
+    want = next(r for r in json.loads(
+        (ROOT / "benchmarks" / "results" / "topology_search.json")
+        .read_text())["rows"] if r["topology"] == "fleetopt")
+    got = res["graph"]
+    assert (got.plan.instances, got.compliant,
+            round(got.slo_tok_per_watt, 2),
+            round(got.measured_decode_tok_per_watt, 2),
+            round(got.ttft_p99_s, 3)) == (
+        want["instances"], want["compliant"], want["slo_feasible"],
+        want["measured"], want["ttft_p99_s"])

@@ -6,8 +6,7 @@ Each case mirrors one of tests/core/test_{fleet,topospec,diurnal,
 autoscale_policy}.py or tests/serving/test_slo.py: it asserts the
 reference test's own claim on the port, and that the port's result equals
 the reference's exactly — every field of every dataclass, float for float
-(`_plain` compares floats by their bits).  The reference's
-`test_analyzer_api` is not mirrored: `core.analyzer` is ROADMAP A 3.
+(`_plain` compares floats by their bits).
 """
 import dataclasses
 import importlib
@@ -18,6 +17,7 @@ import numpy as np
 import pytest
 
 from repro.core.law import gain_decomposition
+from repro_torch.core.law import gain_decomposition as port_gain_decomposition
 
 # --- both packages, one namespace each -------------------------------------
 
@@ -113,11 +113,12 @@ def test_topology_ordering(azure_grid):
 
 
 def test_combined_gain(azure_grid):
-    """The reference's `gain_decomposition` (core.law, ROADMAP A 3) over
-    the port's tok/W grid, which equals the reference's exactly."""
+    """`gain_decomposition` (core.law) of the port over the port's tok/W
+    grid, which equals the reference's exactly, equals the reference's."""
     tpw = {g: {t: r.tok_per_watt for t, r in col.items()}
            for g, col in azure_grid.items()}
-    g = gain_decomposition(tpw)
+    g = port_gain_decomposition(tpw)
+    assert_same(gain_decomposition(tpw), g)
     assert g["combined"] == pytest.approx(4.25, rel=0.15)
     assert g["topo_h100"] < 0.75 * g["combined"]
     assert g["gen_homo"] < 0.75 * g["combined"]

@@ -1,6 +1,7 @@
 """Import and device hygiene of the port.
 
-The port, `chip_smoke.py` and `tools/port_fleet_bench.py` import neither
+The port, `chip_smoke.py` and the port's tools (`tools/port_fleet_bench.py`,
+`tools/port_paper_tables.py`, `tools/port_trace_report.py`) import neither
 jax nor the reference package `repro`; importing them leaves jax unloaded;
 the port's entry points refuse to run on CUDA when there is none instead
 of falling back to the CPU; and its kernel modules import where no CUDA
@@ -17,7 +18,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "port_fleet_bench.py"]
+    + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / f"{name}.py" for name in (
+        "port_fleet_bench", "port_paper_tables", "port_trace_report")]
 
 
 def _imported_roots(path):
@@ -46,9 +48,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.serving.telemetry, repro_torch.serving.energy, "
             "repro_torch.serving.engine, repro_torch.serving.autoscale, "
             "repro_torch.serving.soa, repro_torch.serving.fleetsim, "
-            "repro_torch.serving.graph_engine; "
+            "repro_torch.serving.graph_engine, repro_torch.core.topo_search, "
+            "repro_torch.core.analyzer, repro_torch.core.adaptive; "
             f"sys.path.insert(0, {str(ROOT / 'tools')!r}); "
-            "import port_fleet_bench; "
+            "import port_fleet_bench, port_paper_tables, port_trace_report; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -2,7 +2,8 @@
 """The fleet tables of the quick benches and Table E, from the port, held
 to the committed baselines.
 
-  PYTHONPATH=src python3 tools/port_fleet_bench.py [--only sim|diurnal|grid]
+  PYTHONPATH=src python3 tools/port_fleet_bench.py [--only sim|diurnal|grid|
+                                                    topology]
                                                    [--engine numpy|graph]
                                                    [--device cuda|cpu]
                                                    [--out DIR]
@@ -15,22 +16,27 @@ semantic and MoE pools) and of `benchmarks/fleet_diurnal_bench.py --quick`
 (Table F: a compressed diurnal day, static vs autoscaled), and of
 `benchmarks/fleet_grid_bench.py` (Table E: the 260-cell Azure sensitivity
 grid, misroute x dispatch floor x chip x pool count, at its defaults:
-400 requests, seed 0, 4 scenarios per batched drain).  It builds each row
-as those benches do, importing only `repro_torch`, writes {"meta", "rows"}
-as `fleet_sim.json`, `fleet_diurnal.json` and `fleet_grid.json` under DIR
-(default build/port_fleet_bench/), and compares every row, field for
-field, with benchmarks/results/fleet_sim.json (28 rows),
-fleet_diurnal.json (12 rows) and fleet_grid.json (260 rows).  Prints each
-table's wall and, last, a JSON summary; exits 1 if any field of any row
-differs.
+400 requests, seed 0, 4 scenarios per batched drain), and of
+`benchmarks/topology_search_bench.py --quick` (azure-conv, 1500 requests,
+budget 10, seed 0: the four hand-built fleets homo / two_pool / fleetopt /
+multipool K=3 and the fleet `core.topo_search.optimize_topology` finds,
+every one sized by `size_to_slo_spec` over one frozen trace).  It builds
+each row as those benches do, importing only `repro_torch`, writes
+{"meta", "rows"} as `fleet_sim.json`, `fleet_diurnal.json`,
+`fleet_grid.json` and `topology_search.json` under DIR (default
+build/port_fleet_bench/), and compares every row, field for field, with
+benchmarks/results/fleet_sim.json (28 rows), fleet_diurnal.json (12
+rows), fleet_grid.json (260 rows) and topology_search.json (5 rows, meta
+included).  Prints each table's wall and, last, a JSON summary; exits 1
+if any field of any row differs.
 
-Tables A-D and F drain in the numpy engine on the host.  Table E drains
-in `--engine` (default numpy; "graph" is the compiled drain of
-serving.graph_engine, on `--device`, default cuda, with the reference
-bench's shape classes).  Each wall is named for what it measures: "host
-wall" where the pools drain in numpy or on the CPU, "card wall" where the
-graph engine drains on the card, printed beside the card's name and power
-limit (nvidia-smi).
+Tables A-D and F drain in the numpy engine on the host.  Table E and the
+topology search drain in `--engine` (default numpy; "graph" is the
+compiled drain of serving.graph_engine, on `--device`, default cuda;
+Table E with the reference bench's shape classes).  Each wall is named
+for what it measures: "host wall" where the pools drain in numpy or on
+the CPU, "card wall" where the graph engine drains on the card, printed
+beside the card's name and power limit (nvidia-smi).
 """
 from __future__ import annotations
 
@@ -47,18 +53,21 @@ import numpy as np
 from repro_torch.core import ladder_windows, size_to_slo
 from repro_torch.core.autoscale import AutoscalePolicy
 from repro_torch.core.hardware import B200, GB200, H100, H200
-from repro_torch.core.modelspec import LLAMA31_70B, QWEN3_235B_A22B
+from repro_torch.core.modelspec import (LLAMA31_8B, LLAMA31_70B,
+                                       QWEN3_235B_A22B)
 from repro_torch.core.moe import moe_profile
 from repro_torch.core.power import (B200_POWER, GB200_POWER, H100_POWER,
                                     H200_POWER)
 from repro_torch.core.profiles import (B200_LLAMA70B_FLEET, GB200_LLAMA70B,
                                        H100_LLAMA70B, H200_LLAMA70B)
+from repro_torch.core.routing import LONG_WINDOW
 from repro_torch.core.slo import SLOSpec, size_to_slo_spec
+from repro_torch.core.topo_search import optimize_topology
 from repro_torch.core.topospec import TopologySpec
 from repro_torch.core.workloads import AGENT, AZURE, LMSYS, DiurnalProfile
 from repro_torch.serving import (prepare_spec, prepare_topology,
                                  run_fleet_grid, sample_diurnal_trace,
-                                 simulate_topology)
+                                 sample_trace, simulate_topology)
 
 ROOT = Path(__file__).resolve().parents[1]
 RESULTS = ROOT / "benchmarks" / "results"
@@ -98,6 +107,14 @@ SHAPE_CLASSES = ((256, 32, 4),      # MoE expert pools, tiny slots/queues
                  (64, 256, 64),     # semantic/16K first pools
                  (32, 768, 96),     # fleetopt short pools, 8K ladder
                  (8, 1536, 96))     # b_short=2048 / 4K-ladder slot monsters
+
+# the topology search bench's quick configuration: azure-conv only, its
+# four hand-built kinds (from_kind arguments as the bench selects them)
+SEARCH = dict(slo_requests=1500, budget=10, seed=0, quick=True)
+SEARCH_KW = {"homo": dict(b_short=B_SHORT["azure-conv"]),
+             "two_pool": dict(b_short=B_SHORT["azure-conv"]),
+             "fleetopt": dict(b_short=B_SHORT["azure-conv"]),
+             "multipool": dict(windows=ladder_windows(3))}
 
 
 def _table_a():
@@ -203,20 +220,27 @@ def _peak_ttft_p99(sim, dprof):
     return round(float(np.quantile(first[mask] - arrival[mask], 0.99)), 4)
 
 
+def diurnal_spec(kind, profile, day_s):
+    """Table F's spec of `kind`: the from_kind fleet with the autoscaler
+    scaled to the compressed day (a control epoch of 1/40 day, hysteresis
+    3 epochs, actuation lag 1/3 epoch)."""
+    epoch = day_s / 40.0
+    policy = AutoscalePolicy(control_interval_s=epoch, target_utilization=0.65,
+                             scaleup_lag_s=epoch / 3.0,
+                             scaledown_delay_s=3.0 * epoch, min_frac=0.15)
+    return dataclasses.replace(
+        TopologySpec.from_kind(kind, profile, LLAMA31_70B, **SLO_KW[kind]),
+        autoscale=policy)
+
+
 def _table_f():
     peak, day = DIURNAL["peak_rate"], DIURNAL["day_s"]
     dprof = DiurnalProfile(peak_rate=peak, day_s=day)
     wl = dataclasses.replace(AZURE, arrival_rate=peak)
-    epoch = day / 40.0
-    policy = AutoscalePolicy(control_interval_s=epoch, target_utilization=0.65,
-                             scaleup_lag_s=epoch / 3.0,
-                             scaledown_delay_s=3.0 * epoch, min_frac=0.15)
     rows = []
     for gen, prof in DIURNAL_GENERATIONS:
-        for kind, kw in SLO_KW.items():
-            spec = dataclasses.replace(
-                TopologySpec.from_kind(kind, prof, LLAMA31_70B, **kw),
-                autoscale=policy)
+        for kind in SLO_KW:
+            spec = diurnal_spec(kind, prof, day)
             res = size_to_slo_spec(spec, wl, slo=SLOSpec(ttft_p99_s=0.2),
                                    n_requests=DIURNAL["slo_requests"],
                                    seed=SEED)
@@ -365,6 +389,62 @@ def _grid_tables(engine, device):
         cells, engine=engine, device=device)) for fam, cells in fams.items())
 
 
+def search_run(*, engine="numpy", device="cuda"):
+    """The quick topology search bench: (rows, the hand-built specs'
+    `SLOSizingResult`s by kind, the `TopologySearchResult`)."""
+    n, seed, wl, slo = SEARCH["slo_requests"], SEARCH["seed"], AZURE, \
+        SLOSpec()
+    # ONE frozen trace shared by every hand-built spec AND the search
+    trace = sample_trace(wl, n, seed=seed, max_total=LONG_WINDOW)
+    rows, sized = [], {}
+    best_hand, best_hand_kind = float("-inf"), None
+    for kind, kw in SEARCH_KW.items():
+        spec = TopologySpec.from_kind(kind, H100_LLAMA70B, LLAMA31_70B, **kw)
+        res = sized[kind] = size_to_slo_spec(
+            spec, wl, slo=slo, n_requests=n, seed=seed, trim=False,
+            engine=engine, trace=trace, device=device)
+        score = res.slo_tok_per_watt if res.compliant else 0.0
+        if res.compliant and score > best_hand:
+            best_hand, best_hand_kind = score, kind
+        rows.append(dict(
+            table="topology_search", workload=wl.name, topology=kind,
+            label=spec.label, spec_hash=spec.spec_hash,
+            slo_feasible=round(score, 2),
+            measured=round(res.measured_decode_tok_per_watt, 2),
+            ttft_p99_s=round(res.ttft_p99_s, 3),
+            instances=res.plan.instances, compliant=res.compliant))
+    sr = optimize_topology(
+        wl, H100_LLAMA70B, LLAMA31_70B, slo=slo, small_model=LLAMA31_8B,
+        n_requests=n, seed=seed, budget=SEARCH["budget"], trim=False,
+        engine=engine, device=device)
+    rows.append(dict(
+        table="topology_search", workload=wl.name, topology="searched",
+        label=sr.best_spec.label, spec_hash=sr.best_spec.spec_hash,
+        slo_feasible=round(sr.best_score, 2)
+        if sr.best_result.compliant else 0.0,
+        measured=round(sr.best_result.measured_decode_tok_per_watt, 2),
+        ttft_p99_s=round(sr.best_result.ttft_p99_s, 3),
+        instances=sr.best_result.plan.instances,
+        compliant=sr.best_result.compliant,
+        evaluations=sr.evaluations, restarts=sr.restarts,
+        best_hand_built=best_hand_kind,
+        gain_vs_hand_pct=round(100.0 * (sr.best_score / best_hand - 1.0), 1)
+        if best_hand > 0 else None))
+    return rows, sized, sr
+
+
+def search_derived(rows) -> str:
+    """The bench's one-liner: the searched fleet against the best
+    hand-built one."""
+    r = rows[-1]
+    return (f"{r['workload']}: searched {r['slo_feasible']:.2f} tok/W"
+            f" ({r['label']})"
+            + (f" vs best hand-built {r['best_hand_built']}"
+               f" ({r['gain_vs_hand_pct']:+g}%)"
+               if r["best_hand_built"] is not None
+               else " (no hand-built topology is SLO-compliant)"))
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -381,6 +461,7 @@ BENCHES = {
              ("disagg", _table_c), ("model_hetero", _table_d))),
     "diurnal": ("fleet_diurnal.json", DIURNAL, (("diurnal", _table_f),)),
     "grid": ("fleet_grid.json", None, None),
+    "topology": ("topology_search.json", SEARCH, None),
 }
 
 
@@ -403,7 +484,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=tuple(BENCHES), default=None)
     ap.add_argument("--engine", choices=("numpy", "graph"), default="numpy",
-                    help="Table E's drain (the other tables: numpy)")
+                    help="the drain of Table E and of the topology search"
+                         " (the other tables: numpy)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the graph engine drains")
     ap.add_argument("--out", type=Path,
@@ -421,8 +503,12 @@ def main(argv=None) -> int:
                         device=args.device if args.engine == "graph"
                         else "host")
             tables = _grid_tables(args.engine, args.device)
-            if args.engine == "graph" and args.device == "cuda":
-                wall_name, card = "card wall", card_line()
+        if name == "topology":
+            tables = (("topology_search", lambda: search_run(
+                engine=args.engine, device=args.device)[0]),)
+        if name in ("grid", "topology") and args.engine == "graph" \
+                and args.device == "cuda":
+            wall_name, card = "card wall", card_line()
         t0, rows, walls = time.perf_counter(), [], {}
         for table, build in tables:
             t = time.perf_counter()
@@ -442,6 +528,14 @@ def main(argv=None) -> int:
             print(f"{fname}: {d}")
         if name == "grid":
             print(f"{fname} derived: {derive(rows)}")
+        if name == "topology":
+            for r in rows:
+                print(f"{fname} {r['topology']}: {r['label']}"
+                      f" slo_feasible {r['slo_feasible']} measured"
+                      f" {r['measured']} ttft_p99_s {r['ttft_p99_s']}"
+                      f" instances {r['instances']}"
+                      + ("" if r["compliant"] else " NON-COMPLIANT"))
+            print(f"{fname} derived: {search_derived(rows)}")
         summary[name] = dict(rows=len(rows), baseline_rows=len(want["rows"]),
                              differences=len(diffs), wall=wall_name,
                              table_wall_s=walls,
