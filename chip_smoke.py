@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
               package's sweep shapes, the serve path's six shapes
               (llama31-8b G=4 D=128, zamba2 G=1 D=80 and granite-moe G=2
               D=64, each in a short pool 16 slots x 256 and a long pool
-              4 x 1024), two larger
+              4 x 1024), phase 14's two decode shapes (whisper-medium G=1
+              D=64, llava-next-34b G=7 D=128), two larger
               ones, the ragged T and the paper's 64K window (4 x 65536),
               float32 and bfloat16 at the limits of TOL; masked entries
               overwritten with +-999 leave the output unchanged; a planted
@@ -210,6 +211,48 @@ Phases, in order; any failure exits non-zero:
               beside the card's name and power limit; 13d every suite of
               tools/port_paper_tables.py on the card's host, each
               returning rows, its derived string printed;
+  14. train   training on the card (TF32 off, as everywhere here):
+              14a one reduced float32 config of each training family
+              (TRAIN_ARCHS: yi-6b, granite-moe-1b-a400m at capacity 0.5,
+              whisper-medium, llava-next-34b), one `make_train_step` from
+              the same `init_params` draw and `batch_iterator` batch on
+              the card's host CPU and on the card: the loss, every
+              gradient leaf and every updated leaf within the tolerances
+              tests/test_torch_training.py states against JAX; two planted
+              faults made from the unchanged modules on the card side
+              (whisper's frames, llava's patches rolled by one along the
+              batch) must fail that gate;
+              14b `launch/train.py`'s path at the reference's ~100M demo
+              (DEMO_ARGS: yi-6b, preset 100m, 100 steps, batch 8 x 128, lr
+              2e-3): the last logged loss >= 1 nat below the first (the
+              reference test's criterion), the checkpoint written,
+              reloaded bit-equal, its keys those of
+              `to_reference_layout`;
+              14c granite-moe-1b-a400m at full width and depth, bf16,
+              capacity 1.25: 10 AdamW steps at batch 4 x 512, every loss,
+              grad_norm and aux loss finite, step 9's loss below step 0's,
+              assignments dropped; peak memory, wall per step and the
+              dropped share printed;
+              14d whisper-medium at full width and depth (24 + 24 layers,
+              1500 frames, bf16): one train step at batch 2 x 64, every
+              encoder weight the loss reads with a finite, nonzero
+              gradient (it reaches the encoder only through
+              cross-attention); then, under no_grad, a 16-token prefill
+              and 8 decode steps through flash_decode, each against the
+              plain attention on the same cache within LOGIT_REL_BOUND,
+              the cross-attention cache equal to encode_cross_kv of the
+              encoder output, launches exactly 24 x 8;
+              14e llava-next-34b at full width, depth cut to 2 repeats:
+              2880 patches and a 32-token prompt prefilled, 4 decode steps
+              at positions offset by n_patches through flash_decode (G =
+              7, D = 128) against plain, launches exactly 2 x 4;
+              14f zamba2-2.7b and rwkv6-1.6b reduced with trainable
+              weights: a train step raises the kernels' no-backward
+              RuntimeError (ROADMAP A 5b); the same forward under no_grad
+              launches the scan as before;
+              then phase 14's flash_decode launches and shapes on a line
+              (the shapes must be those phase 3 checked),
+              and its walls beside the card's name and power limit;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -232,6 +275,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -258,9 +302,14 @@ from repro_torch.core.routing import LONG_WINDOW  # noqa: E402
 from repro_torch.core.slo import SLOSpec, size_to_slo_spec  # noqa: E402
 from repro_torch.core.topospec import TopologySpec  # noqa: E402
 from repro_torch.core.workloads import WORKLOADS  # noqa: E402
+from repro_torch.data import batch_iterator  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.attention import encode_cross_kv  # noqa: E402
+from repro_torch.models.convert import (flatten_paths,  # noqa: E402
+                                        to_reference_layout)
 from repro_torch.models.common import rms_norm, silu  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ContextRouter, PoolEngine, Request, RouterPolicy, SimVsAnalytical,
@@ -268,6 +317,10 @@ from repro_torch.serving import (  # noqa: E402
     conservation_violations, prepare_spec, reconcile_energy, run_fleet_grid,
     sample_trace, to_perfetto)
 from repro_torch.serving import graph_engine as GE  # noqa: E402
+from repro_torch.training import (AdamW, load_checkpoint,  # noqa: E402
+                                  make_train_step)
+from repro_torch.training.optimizer import tree_leaves, tree_map  # noqa: E402
+from repro_torch.training.train import batch_to, loss_and_grads  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
 import port_fleet_bench as PFB  # noqa: E402
@@ -395,6 +448,46 @@ SEMANTIC = dict(boundary=128.0, detect_tokens=32, misroute_rate=0.25)
 COUNTED = {"flash_decode": flash_decode,
            "flash_decode_int8": flash_decode_int8, "mamba_scan": mamba_scan,
            "wkv6": wkv6}
+# Phase 14 ("train").  14a: one reduced float32 config of each training
+# family, one train step on the card's host CPU and on the card from the
+# same weights and batch, held to the tolerances tests/test_torch_training.py
+# states against JAX: the loss within LOSS_ATOL, every gradient leaf within
+# GRAD_REL of its max|g|, every updated leaf within STEP_ATOL except where
+# the CPU's gradient is within NOISE_REL of its leaf's max (Adam's first
+# step moves such an element by +-lr, either sign: 2 lr apart at most).
+# granite-moe at capacity 0.5, so that the dispatch drops.
+TRAIN_ARCHS = ("yi-6b", "granite-moe-1b-a400m", "whisper-medium",
+               "llava-next-34b")
+TRAIN_CHANGES = {"granite-moe-1b-a400m": dict(capacity_factor=0.5)}
+TRAIN_BATCH = dict(batch=2, seq=24)
+TRAIN_OPT = dict(lr=1e-3, total_steps=10)
+LOSS_ATOL, GRAD_REL, STEP_ATOL, NOISE_REL = 1e-5, 1e-4, 1e-6, 1e-3
+# the planted faults, made from the unchanged modules, card side only
+TRAIN_FAULTS = {"whisper-medium": "frames rolled by one along the batch",
+                "llava-next-34b": "patches rolled by one along the batch"}
+# 14b: the reference's ~100M-parameter demo ("paper-scale" preset) with
+# tests/training/test_training.py's lr, and that test's criterion: the last
+# logged loss at least DEMO_FALL nats below the first
+DEMO_ARGS = ["--arch", "yi-6b", "--preset", "100m", "--steps", "100",
+             "--batch", "8", "--seq", "128", "--lr", "2e-3"]
+DEMO_FALL = 1.0
+# 14c: granite-moe at full width and depth, bf16, its own capacity 1.25;
+# lr 2e-3 as 14b, a 2-step warmup so that 10 steps train
+MOE_TRAIN = dict(batch=4, seq=512, steps=10,
+                 opt=dict(lr=2e-3, warmup_steps=2, total_steps=10))
+# 14d: whisper-medium at full width and depth, bf16 weights, f32 frames
+WHISPER_TRAIN = dict(batch=2, seq=64)
+ENC_PROMPT, ENC_DECODE_STEPS = 16, 8
+# 14e: llava-next-34b at full width, depth cut to 2 repeats (34.4 B
+# parameters do not fit one card); its 2880 patches and a 32-token prompt
+LLAVA_REPEATS, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_DECODE_STEPS = 2, 2, 32, 4
+# the shapes 14d and 14e give flash_decode, checked in phase 3 beside the
+# serve shapes: whisper-medium (G = 1, D = 64) and llava-next-34b (G = 7,
+# the first group that is not a power of two, D = 128), B = the batch, T =
+# the prompt (and llava's patches) plus the decode steps
+TRAIN_DECODE_SHAPES = [
+    (WHISPER_TRAIN["batch"], 16, 16, 64, ENC_PROMPT + ENC_DECODE_STEPS),
+    (LLAVA_BATCH, 56, 8, 128, 2880 + LLAVA_PROMPT + LLAVA_DECODE_STEPS)]
 
 
 def log(msg: str) -> None:
@@ -838,9 +931,10 @@ def phase_kernel():
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in SWEEP + SERVE_SHAPES + EXTRA + [RAGGED_T, LONG]:
+        for shape in SWEEP + SERVE_SHAPES + TRAIN_DECODE_SHAPES + EXTRA \
+                + [RAGGED_T, LONG]:
             errs[(shape, dtype)] = check_kernel(shape, dtype, gen)
-        for shape in SERVE_SHAPES:
+        for shape in SERVE_SHAPES + TRAIN_DECODE_SHAPES:
             check_kernel(shape, dtype, gen, strided_q=True)
     control_kernel(MAIN[1], gen)
     control_kernel(GRANITE[1], gen)
@@ -1255,11 +1349,11 @@ def phase_moe_model(cfg, params):
     def checked(tag):
         seen = checks.setdefault(tag, [])
 
-        def fn(p, c, x):
+        def fn(p, c, x, **kw):
             seen.append(moe_check(p, c, x))
             if len(seen) <= MOE_TIMED_LAYERS:
                 seen[-1]["x"] = x.clone()
-            return real(p, c, x)
+            return real(p, c, x, **kw)
         return fn
 
     cache = M.init_cache(cfg, len(PLENS), 1024, device=DEVICE)
@@ -1362,11 +1456,11 @@ def moe_decode_twins(cfg, params, tokens, cache, pos):
     def recording(tag):
         store = probs.setdefault(tag, [])
 
-        def fn(p, c, x):
+        def fn(p, c, x, **kw):
             B, S, d = x.shape
             h = rms_norm(x, p["norm"], c.norm_eps).reshape(B * S, d)
             store.append(torch.softmax(h.float() @ p["router"], dim=-1))
-            return real(p, c, x)
+            return real(p, c, x, **kw)
         return fn
 
     def skip_tile(q, k, v, lengths, *, impl=None):
@@ -2437,6 +2531,396 @@ def phase_search():
                 graphs_captured=b["graphs"])
 
 
+# ---- phase 14: training ------------------------------------------------------
+
+def step_on(cfg, params, batch, device, fault=None):
+    """One `make_train_step` of `params` (updated in place) on `device`:
+    the loss, the gradient tree the step handed AdamW (flat, reference
+    keys, None as zeros) and the updated leaves (flat), all as numpy."""
+    b = batch_to(batch, device)
+    seen = {}
+
+    class Keep(AdamW):
+        def update(self, grads, state, params, **kw):
+            seen["grads"] = grads
+            return super().update(grads, state, params, **kw)
+
+    opt = Keep(**TRAIN_OPT)
+    with fault() if fault else contextlib.nullcontext():
+        params, _, m = make_train_step(cfg, opt)(params, opt.init(params), b)
+    grads = seen["grads"]
+    none = {id(p) for p, g in zip(tree_leaves(params), tree_leaves(grads))
+            if g is None}
+    grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g,
+                     grads, params)
+    return (float(m["loss"]), flatten_paths(to_reference_layout(grads)),
+            flatten_paths(to_reference_layout(params)), len(none), m["lr"])
+
+
+def step_diffs(cpu, card):
+    """14a's gate: (loss error, worst gradient error / GRAD_REL bound,
+    worst update error / its bound); all three <= 1 pass."""
+    loss, grads, new, n_none, lr = cpu
+    closs, cgrads, cnew, cn_none, _ = card
+    g_worst = u_worst = 0.0
+    for key, g in grads.items():
+        scale = max(float(np.abs(g).max()), 1e-30)
+        g_worst = max(g_worst, float(np.abs(cgrads[key] - g).max())
+                      / (GRAD_REL * scale))
+        atol = np.where(np.abs(g) > NOISE_REL * np.abs(g).max(), STEP_ATOL,
+                        2 * lr)
+        u_worst = max(u_worst, float((np.abs(cnew[key] - new[key])
+                                      / atol).max()))
+    if n_none != cn_none:
+        g_worst = math.inf
+    return abs(closs - loss) / LOSS_ATOL, g_worst, u_worst
+
+
+def train_fault(arch):
+    """A context that plants arch's TRAIN_FAULTS entry."""
+    if arch == "whisper-medium":
+        def rolled(params, cfg, frames):
+            return real(params, cfg, frames.roll(1, 0))
+        name = "encoder_apply"
+    else:
+        def rolled(params, cfg, tokens, patches=None):
+            return real(params, cfg, tokens, patches.roll(1, 0))
+        name = "embed_inputs"
+    real = getattr(M, name)
+    return lambda: patched(M, name, rolled)
+
+
+def phase_train_parity():
+    """14a: card against the port's CPU arithmetic."""
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  **TRAIN_CHANGES.get(arch, {}))
+        batch = next(batch_iterator(cfg, **TRAIN_BATCH))
+        cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        runs = {}
+        faults = [("card", None)] + ([("fault", train_fault(arch))]
+                                     if arch in TRAIN_FAULTS else [])
+        for tag, fault in faults:
+            runs[tag] = step_diffs(
+                step_on(cfg, tree_map(torch.clone, cpu_params), batch,
+                        "cpu"),
+                step_on(cfg, tree_map(lambda t: t.to(DEVICE), cpu_params),
+                        batch, DEVICE, fault))
+        card = runs["card"]
+        log(f"  14a {arch} reduced (f32{', capacity 0.5' if arch in TRAIN_CHANGES else ''}):"
+            f" card vs CPU, error / bound: loss {card[0]:.3e}, worst grad"
+            f" leaf {card[1]:.3e}, worst updated leaf {card[2]:.3e}")
+        if max(card) > 1:
+            raise SystemExit(f"14a: {arch}'s train step on the card disagrees"
+                             " with the CPU's")
+        if "fault" in runs:
+            log(f"  14a {arch} control, {TRAIN_FAULTS[arch]} on the card:"
+                f" loss {runs['fault'][0]:.3e}, grad {runs['fault'][1]:.3e},"
+                f" update {runs['fault'][2]:.3e} (must exceed 1)")
+            if max(runs["fault"]) <= 1:
+                raise SystemExit(f"14a: the gate does not catch"
+                                 f" {TRAIN_FAULTS[arch]}")
+
+
+def phase_train_demo():
+    """14b: launch/train.py's path on the reference's 100M demo."""
+    path = ROOT / "build" / "chip_smoke" / "yi-6b-100m.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    cfg, params, hist = launch_train.main(DEMO_ARGS + [
+        "--device", DEVICE, "--ckpt", str(path)])
+    wall = time.perf_counter() - t0
+    fall = hist[0]["loss"] - hist[-1]["loss"]
+    log(f"  14b {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, loss"
+        f" {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} (fell"
+        f" {fall:.4f} nats, must fall >= {DEMO_FALL}), {wall:.1f} s with the"
+        f" checkpoint")
+    if not fall >= DEMO_FALL:
+        raise SystemExit("14b: the demo's loss did not fall by 1 nat")
+    with np.load(path) as data:
+        keys = sorted(set(data.files) - {"__step__"})
+    want = sorted(flatten_paths(to_reference_layout(params)))
+    loaded, step = load_checkpoint(str(path), tree_map(torch.empty_like,
+                                                       params))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                  tree_leaves(loaded)))
+    log(f"  14b checkpoint {path.stat().st_size / 2**20:.0f} MiB, {len(keys)}"
+        f" leaves, keys equal to_reference_layout's: {keys == want}, step"
+        f" {step}, reloaded bit-equal: {same}")
+    path.unlink()
+    if keys != want or step != int(DEMO_ARGS[DEMO_ARGS.index("--steps") + 1]) \
+            or not same:
+        raise SystemExit("14b: the checkpoint does not round-trip")
+    return wall
+
+
+def phase_train_moe():
+    """14c: granite-moe at full width and depth, 10 AdamW steps."""
+    cfg, params = load_model(MOE_ARCH)
+    opt = AdamW(**MOE_TRAIN["opt"])
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    it = batch_iterator(cfg, batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"])
+    seen = {"aux": [], "kept": [], "all": 0}
+    real_lb, real_dispatch = moe.load_balance_loss, moe._dispatch_group
+
+    def lb_spy(logits, idx, E):
+        out = real_lb(logits, idx, E)
+        seen["aux"].append(out.detach())
+        return out
+
+    def dispatch_spy(hf, idx, E, k, C):
+        buf, meta = real_dispatch(hf, idx, E, k, C)
+        seen["kept"].append(meta[1].sum())
+        seen["all"] += meta[1].numel()
+        return buf, meta
+
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    with patched(moe, "load_balance_loss", lb_spy), \
+            patched(moe, "_dispatch_group", dispatch_spy):
+        for i in range(MOE_TRAIN["steps"]):
+            batch = batch_to(next(it), DEVICE)
+            seen["aux"] = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            rows.append(dict(loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"]),
+                             aux=float(sum(seen["aux"])), lr=m["lr"],
+                             wall_s=time.perf_counter() - t0))
+    dropped = 1 - float(sum(seen["kept"])) / seen["all"]
+    log(f"  14c {cfg.name}: {MOE_TRAIN['steps']} steps at batch"
+        f" {MOE_TRAIN['batch']} x {MOE_TRAIN['seq']}, capacity"
+        f" {cfg.capacity_factor}: dropped-assignment share {dropped:.4f},"
+        f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for i, r in enumerate(rows):
+        log(f"    step {i}: loss {r['loss']:.4f} grad_norm"
+            f" {r['grad_norm']:.3f} aux {r['aux']:.4f} lr {r['lr']:.2e}"
+            f" wall {r['wall_s'] * 1e3:.1f} ms")
+    # a non-finite gradient leaf would make the global norm non-finite
+    if not all(math.isfinite(r[k]) for r in rows
+               for k in ("loss", "grad_norm", "aux")):
+        raise SystemExit("14c: a non-finite loss, gradient or aux loss")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise SystemExit("14c: granite's loss did not fall in 10 steps")
+    if not dropped > 0:
+        raise SystemExit("14c: the training dispatch dropped nothing")
+    del params, state
+    torch.cuda.empty_cache()
+    return [r["wall_s"] for r in rows]
+
+
+def decode_vs_plain(tag, cfg, params, cache, tokens, pos0, steps):
+    """`steps` greedy decode steps through the kernel, each also run with
+    the plain attention on a copy of the same cache: logits within
+    LOGIT_REL_BOUND (phase 4's bound), a differing top-1 only at a
+    near-tie.  Counts set to 0 just before and read just after.  Returns
+    the cache, the flash_decode launches and the one (B, H, K, D, T) shape
+    the decode steps handed flash_decode."""
+    shapes = Counter()
+
+    def seen(q, k, v, lengths):
+        shapes[(*q.shape[:2], *k.shape[2:], k.shape[1])] += 1
+        return FD.flash_decode(q, k, v, lengths)
+
+    for fn in COUNTED.values():
+        fn.launches = 0
+    worst = 0.0
+    for i in range(steps):
+        plain, _ = M.decode_step(params, cfg, tokens, clone_cache(cache),
+                                 pos0 + i, impl="plain")
+        with patched(ops, "_fd", types.SimpleNamespace(flash_decode=seen)):
+            a, cache = M.decode_step(params, cfg, tokens, cache, pos0 + i)
+        rel, agree, _, tie_ok = rel_rows(a[:, 0], plain[:, 0])
+        worst = max(worst, max(rel))
+        if not bool(torch.isfinite(a).all()) or max(rel) > LOGIT_REL_BOUND \
+                or not tie_ok:
+            raise SystemExit(f"{tag}: decode step {i} through flash_decode"
+                             f" disagrees with plain ({rel}, top-1 {agree})")
+        tokens = a[:, 0].argmax(-1, keepdim=True)
+    counts = {name: fn.launches for name, fn in COUNTED.items()}
+    want = dict({n: 0 for n in counts},
+                flash_decode=cfg.attn_block_count * steps)
+    log(f"  {tag}: {steps} decode steps, max|d|/max|logits| kernel vs plain"
+        f" {worst:.3e} (bound {LOGIT_REL_BOUND}), launches {counts}")
+    if counts != want or len(shapes) != 1:
+        raise SystemExit(f"{tag}: launches {counts}, want {want}; shapes"
+                         f" {dict(shapes)}")
+    return cache, counts["flash_decode"], next(iter(shapes))
+
+
+def pad_self_attn(cache, slots):
+    """Self-attention K/V of a prefill cache widened to `slots` slots."""
+    return {name: ({key: torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, slots - t.shape[2])) for key, t in c.items()}
+        if name.endswith("_attn") and "cross" not in name else c)
+        for name, c in cache.items()}
+
+
+def phase_train_whisper():
+    """14d: whisper-medium at full width: a train step, then decode."""
+    cfg, params = load_model("whisper-medium")
+    b = batch_to(next(batch_iterator(cfg, **WHISPER_TRAIN)), DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(params, cfg, b)
+    opt = AdamW(**TRAIN_OPT)
+    params, _ = opt.update(grads, opt.init(params), params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    enc = {f"encoder/{k}": g for k, g in flatten_paths(
+        {"layers": {str(i): layer for i, layer in
+                    enumerate(grads["encoder"]["layers"])},
+         "final_norm": grads["encoder"]["final_norm"]}).items()}
+    read = {k: g for k, g in enc.items() if g is not None}
+    norms = {k: float(g.float().norm()) for k, g in read.items()}
+    unread = sorted({k.rsplit("/", 1)[1] for k, g in enc.items()
+                     if g is None})
+    log(f"  14d {cfg.name} ({cfg.n_repeat} + {cfg.encoder.n_layers} layers,"
+        f" {cfg.encoder.n_frames} frames, {cfg.dtype}): one train step at"
+        f" batch {WHISPER_TRAIN['batch']} x {WHISPER_TRAIN['seq']}, loss"
+        f" {float(loss):.4f}, {wall:.2f} s, peak"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {len(read)}"
+        f" encoder leaves with a gradient, norms {min(norms.values()):.3e}"
+        f"-{max(norms.values()):.3e}; unread (None): {unread}")
+    if not math.isfinite(float(loss)) or not all(
+            math.isfinite(n) and n > 0 for n in norms.values()):
+        raise SystemExit("14d: an encoder gradient is zero or not finite")
+    if unread != ["bk", "bq", "bv"]:
+        raise SystemExit(f"14d: unexpected unread encoder leaves {unread}")
+    del grads
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        frames = b["frames"]
+        prompt = b["tokens"][:, :ENC_PROMPT]
+        logits, cache = M.forward(params, cfg, prompt, mode="prefill",
+                                  frames=frames)
+        enc_out = M.encoder_apply(params, cfg, frames)
+        cross = cache["b1_cross_attn"]
+        equal = all(torch.equal(cross[key][r], encode_cross_kv(
+            params["layers"][r]["b1_cross_attn"], cfg, enc_out)[key])
+            for r in range(cfg.n_repeat) for key in ("k", "v"))
+        kept = clone_cache({"x": cross})["x"]
+        cache = pad_self_attn(cache, ENC_PROMPT + ENC_DECODE_STEPS)
+        cache, launches, shape = decode_vs_plain(
+            "14d whisper", cfg, params, cache,
+            logits[:, -1].argmax(-1, keepdim=True), ENC_PROMPT,
+            ENC_DECODE_STEPS)
+        unchanged = all(torch.equal(cache["b1_cross_attn"][key], kept[key])
+                        for key in ("k", "v"))
+    log(f"  14d cross-attention cache ({cross['k'].dtype}) equal to"
+        f" encode_cross_kv of the encoder output: {equal}; unchanged by"
+        f" decode: {unchanged}")
+    if not equal or not unchanged:
+        raise SystemExit("14d: the cross-attention cache is not the"
+                         " encoder's K/V")
+    del params, cache
+    torch.cuda.empty_cache()
+    return wall, shape, launches
+
+
+def phase_train_llava():
+    """14e: llava-next-34b at full width, 2 repeats: patches + prompt
+    prefilled, then decode at positions offset by n_patches."""
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              n_repeat=LLAVA_REPEATS)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                           DEVICE)
+    log(f"  14e {cfg.name} cut to n_repeat = {LLAVA_REPEATS} of 60 (34.4 B"
+        f" parameters do not fit one card): {cfg.param_count() / 1e9:.2f} B"
+        f" params, init {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    B, P = LLAVA_BATCH, cfg.n_patches
+    patches = torch.randn(B, P, cfg.d_model, generator=gen,
+                          device=DEVICE) * 0.02
+    prompt = torch.randint(0, cfg.vocab, (B, LLAVA_PROMPT), generator=gen,
+                           device=DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.forward(params, cfg, prompt, mode="prefill",
+                                  patches=patches)
+        torch.cuda.synchronize()
+        prefill = time.perf_counter() - t0
+        T = P + LLAVA_PROMPT + LLAVA_DECODE_STEPS
+        log(f"  14e prefill of {P} patches + {LLAVA_PROMPT} tokens at batch"
+            f" {B}: {prefill:.2f} s, cache {tuple(cache['b0_attn']['k'].shape)}")
+        cache, launches, shape = decode_vs_plain(
+            "14e llava", cfg, params, pad_self_attn(cache, T),
+            logits[:, -1].argmax(-1, keepdim=True), P + LLAVA_PROMPT,
+            LLAVA_DECODE_STEPS)
+    del params, cache
+    torch.cuda.empty_cache()
+    return prefill, shape, launches
+
+
+def phase_train_guard():
+    """14f: the SSM scans refuse to train on the card, and serve as before
+    under no_grad."""
+    for arch, (kernel, _) in SSM.items():
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, torch.Generator(device=DEVICE)
+                               .manual_seed(0), DEVICE)
+        b = batch_to(next(batch_iterator(cfg, **TRAIN_BATCH)), DEVICE)
+        try:
+            loss_and_grads(params, cfg, b)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise SystemExit(f"14f: {arch} trained through {kernel} on the"
+                             " card")
+        for fn in COUNTED.values():
+            fn.launches = 0
+        with torch.no_grad():
+            M.forward(params, cfg, b["tokens"])
+        counts = {name: fn.launches for name, fn in COUNTED.items()}
+        blocks = sum(blk.kind in ("mamba2", "rwkv6") for blk in cfg.unit) \
+            * cfg.n_repeat
+        log(f"  14f {arch} reduced: train raised RuntimeError"
+            f" ({msg.split(';')[0]}; names A 5b: {'A 5b' in msg}); under"
+            f" no_grad launches {counts}")
+        if not msg.startswith(kernel) or "A 5b" not in msg \
+                or counts != dict({n: 0 for n in counts}, **{kernel: blocks}):
+            raise SystemExit(f"14f: {arch}'s guard or no_grad path is off")
+
+
+def phase_train():
+    """Phase 14: 14a-14f, each timed; prints the walls beside the card."""
+    walls = {}
+    for tag, fn in (("14a", phase_train_parity), ("14b", phase_train_demo),
+                    ("14c", phase_train_moe), ("14d", phase_train_whisper),
+                    ("14e", phase_train_llava), ("14f", phase_train_guard)):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[tag] = time.perf_counter() - t0
+        if tag == "14c":
+            moe_step_walls = out
+        elif tag == "14d":
+            whisper_step, whisper_shape, whisper_launches = out
+        elif tag == "14e":
+            llava_prefill, llava_shape, llava_launches = out
+    if {whisper_shape, llava_shape} != set(TRAIN_DECODE_SHAPES):
+        raise SystemExit(f"phase 14 gave flash_decode {whisper_shape} and"
+                         f" {llava_shape}, not the shapes phase 3 checked"
+                         f" ({TRAIN_DECODE_SHAPES})")
+    log(f"  phase 14 flash_decode: {whisper_launches + llava_launches}"
+        " launches, shapes (B, H, K, D, T): "
+        + ", ".join(f"{tag} {shape} x {n} (G = {shape[1] // shape[2]},"
+                    f" D = {shape[3]})" for tag, shape, n in (
+                        ("whisper", whisper_shape, whisper_launches),
+                        ("llava", llava_shape, llava_launches))))
+    log(f"  phase 14 walls on {PFB.card_line()}: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; granite step {min(moe_step_walls) * 1e3:.1f}-"
+        f"{max(moe_step_walls) * 1e3:.1f} ms, whisper train step"
+        f" {whisper_step:.2f} s, llava prefill {llava_prefill:.2f} s")
+
+
 def load_model(name):
     cfg = get_config(name)
     t0 = time.perf_counter()
@@ -2560,6 +3044,11 @@ def main() -> int:
     t13 = time.perf_counter()
     phase_search()
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    log("[14] train: loss, gradients and AdamW on the card; whisper's"
+        " encoder and cross-attention, llava's patch prefix")
+    t14 = time.perf_counter()
+    phase_train()
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,6 +57,24 @@ def build(source: str) -> Tuple[Path, str]:
                            f"{res.stderr}")
     os.replace(tmp, lib)
     return lib, res.stdout + res.stderr
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a call of kernel `name`.
+
+    The kernels have no backward pass, and a wrapper fills its outputs
+    through ctypes, so they carry no `grad_fn`: a loss built on them would
+    back-propagate as if the kernel's inputs were constants.  Under
+    `torch.no_grad()` or `torch.inference_mode()`, or on inputs that need
+    no gradient, nothing changes.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass, so its output"
+            " would be detached from autograd's graph; call it under"
+            " torch.no_grad(), or train on the CPU, where the plain version"
+            " is differentiable (backward kernels or a differentiable chunk"
+            " scan on the card: ROADMAP A 5b)")
 
 
 def load(source: str,

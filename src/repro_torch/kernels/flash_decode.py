@@ -150,8 +150,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths above T count as T, and a sequence with lengths[b] <= 0 gets a
     zero output.  Output in q.dtype.  CUDA tensors only.  Calls on one
     device share its workspace, so they must not overlap on two streams.
+    No backward: raises where autograd would record the call
+    (`build.refuse_grad`).
     """
     check_inputs(q, k, v, lengths)
+    _build.refuse_grad("flash_decode", q, k, v, lengths)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_decode launches a CUDA kernel; got tensors"

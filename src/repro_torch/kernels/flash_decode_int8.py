@@ -131,9 +131,11 @@ def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
     a sequence with lengths[b] <= 0 gets a zero output (the Pallas kernel
     averages V over all T rows there; the model never asks).  CUDA tensors
     only.  Calls on one device share `flash_decode`'s workspace, so they
-    must not overlap on two streams.
+    must not overlap on two streams.  No backward: raises where autograd
+    would record the call (`build.refuse_grad`).
     """
     check_inputs(q, kq, vq, ks, vs, lengths)
+    _build.refuse_grad("flash_decode_int8", q, kq, vq, ks, vs, lengths)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_decode_int8 launches a CUDA kernel; got"

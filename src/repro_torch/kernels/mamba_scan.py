@@ -116,9 +116,11 @@ def mamba_scan(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 
     Returns (y (B,S,nh,hd), final_state (B,nh,hd,ds)), float32, from a
     zero state.  CUDA tensors only.  Calls on one device share its
-    workspace, so they must not overlap on two streams.
+    workspace, so they must not overlap on two streams.  No backward:
+    raises where autograd would record the call (`build.refuse_grad`).
     """
     check_inputs(xt, Bm, Cm, lA)
+    _build.refuse_grad("mamba_scan", xt, Bm, Cm, lA)
     dev = xt.device
     if dev.type != "cuda":
         raise ValueError(f"mamba_scan launches a CUDA kernel; got tensors on"

@@ -100,9 +100,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
     Returns (out (B,S,H,hd), final_state (B,H,hd,hd)), float32, from a
     zero state.  CUDA tensors only.  Calls on one device share its
-    workspace, so they must not overlap on two streams.
+    workspace, so they must not overlap on two streams.  No backward:
+    raises where autograd would record the call (`build.refuse_grad`).
     """
     check_inputs(r, k, v, w, u)
+    _build.refuse_grad("wkv6", r, k, v, w, u)
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6 launches a CUDA kernel; got tensors on"

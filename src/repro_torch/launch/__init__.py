@@ -1,1 +1,2 @@
-"""Entry points: `serve` runs the context-routed serving path."""
+"""Entry points: `serve` runs the context-routed serving path, `train` the
+training launcher."""

@@ -1,9 +1,13 @@
-"""GQA attention block: full-sequence (train / prefill) and decode.
+"""GQA attention block: full-sequence (train / prefill), decode, and
+whisper's encoder self-attention and decoder cross-attention.
 
-Prefill is plain PyTorch: causal attention, banded for sliding-window
-attention (SWA), scores in f32.  Decode goes through
-`kernels.ops.decode_attention`, the hand-written flash-decode kernel on the
-card.  SWA decode uses a ring-buffer KV cache of `window` slots.
+The full-sequence paths are plain PyTorch, as the reference computes them
+in jnp outside any Pallas kernel: direct softmax with scores in f32,
+causal (banded for sliding-window attention, SWA) or not.  Decode goes
+through `kernels.ops.decode_attention`, the hand-written flash-decode
+kernel on the card.  SWA decode uses a ring-buffer KV cache of `window`
+slots.  Cross-attention reads encoder K/V that `encode_cross_kv` computes
+once per sequence, at training, prefill and every decode step alike.
 """
 from __future__ import annotations
 
@@ -15,13 +19,16 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .common import apply_rope, dense_init, dtype_of, rms_norm
+from .common import apply_rope, dense_init, dot, dtype_of, rms_norm
 
 NEG_INF = -1e30
 
 
-def init_attention(generator: torch.Generator, cfg,
-                   device: torch.device) -> dict:
+def init_attention(generator: torch.Generator, cfg, device: torch.device,
+                   *, cross: bool = False) -> dict:
+    """A self- or (`cross`) cross-attention block's weights.  A
+    cross-attention block also gets `q_norm`, which, as in the reference,
+    nothing reads."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg)
     p = {
@@ -34,6 +41,8 @@ def init_attention(generator: torch.Generator, cfg,
     if cfg.attn_bias:
         for name, width in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
             p[name] = torch.zeros(width, dtype=dt, device=device)
+    if cross:
+        p["q_norm"] = torch.ones(d, dtype=torch.float32, device=device)
     return p
 
 
@@ -54,12 +63,14 @@ def _qkv(params, cfg, x, *, rope_positions=None):
     return q, k, v
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
-    """Direct-softmax causal GQA attention, scores in f32.
+def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Direct-softmax GQA attention, scores in f32: the reference's
+    `flash_attention` without its chunking.
 
-    q: (B, S, H, D); k, v: (B, S, K, D) with H = K * G.  `window` > 0
-    restricts keys to (q_pos - window, q_pos].  Returns (B, S, H, D) in
+    q: (B, S, H, D); k, v: (B, T, K, D) with H = K * G.  Query i sits at
+    position i and key t at position t; `causal` keeps t <= i, and
+    `window` > 0 further keeps t > i - window.  Returns (B, S, H, D) in
     q.dtype.
     """
     B, S, H, D = q.shape
@@ -67,12 +78,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // K
     qh = q.reshape(B, S, K, G, D).float()
     s = torch.einsum("bskgd,btkd->bkgst", qh, k.float()) / math.sqrt(D)
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = k_pos <= q_pos
-    if window:
-        mask &= k_pos > q_pos - window
-    s = s.masked_fill(~mask, NEG_INF)
+    if causal or window:
+        q_pos = torch.arange(S, device=q.device)[:, None]
+        k_pos = torch.arange(T, device=q.device)[None, :]
+        mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window:
+            mask &= k_pos > q_pos - window
+        s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
@@ -85,7 +99,7 @@ def attention_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     pos = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, cfg, h, rope_positions=pos)
-    out = causal_attention(q, k, v, window=cfg.swa_window)
+    out = direct_attention(q, k, v, window=cfg.swa_window)
     y = out.reshape(B, S, -1) @ params["wo"]
     cache = None
     if mode == "prefill":
@@ -157,3 +171,41 @@ def attention_decode(params, cfg, x: torch.Tensor, cache: dict,
                                impl=impl)
     y = out.to(x.dtype).reshape(B, 1, -1) @ params["wo"]
     return x + y
+
+
+def encoder_attention(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder self-attention: bidirectional, with no RoPE and
+    no bias (its bq/bk/bv are drawn and never read, as in the reference).
+    x: (B, F, d), float32 frames in the reference's batches, so the block
+    runs in float32 whatever the weights' dtype."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    q = dot(h, params["wq"]).reshape(B, S, H, hd)
+    k = dot(h, params["wk"]).reshape(B, S, K, hd)
+    v = dot(h, params["wv"]).reshape(B, S, K, hd)
+    out = direct_attention(q, k, v, causal=False)
+    return x + dot(out.reshape(B, S, -1), params["wo"])
+
+
+def cross_attention_full(params, cfg, x: torch.Tensor,
+                         enc_kv: dict) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (no mask), as
+    in the reference: q from `params["norm"]` (never `q_norm`), no RoPE,
+    no bq even where the config has biases.  The encoder's float32 K/V
+    and a bfloat16 q meet in float32; the output is cast to q's dtype."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    q = (h @ params["wq"]).reshape(B, S, H, hd)
+    out = direct_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return x + out.reshape(B, S, -1) @ params["wo"]
+
+
+def encode_cross_kv(params, cfg, enc_out: torch.Tensor) -> dict:
+    """Cross-attention K/V of the encoder output (B, F, d), which is not
+    normalised again; no bk/bv.  Float32 for float32 frames."""
+    B, T, _ = enc_out.shape
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": dot(enc_out, params["wk"]).reshape(B, T, K, hd),
+            "v": dot(enc_out, params["wv"]).reshape(B, T, K, hd)}

@@ -19,6 +19,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out.to(x.dtype)
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the dtype the two promote to, as JAX computes `f32 @ bf16`
+    in f32 (torch raises on mixed dtypes): float32 encoder frames meet
+    bfloat16 weights in whisper's encoder and cross-attention K/V."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def dense_init(generator: torch.Generator, shape: Sequence[int],
                scale: Optional[float] = None, *, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:

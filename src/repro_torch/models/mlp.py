@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, dtype_of, rms_norm, silu
+from .common import dense_init, dot, dtype_of, rms_norm, silu
 
 
 def init_mlp(generator: torch.Generator, cfg, device: torch.device) -> dict:
@@ -19,11 +19,13 @@ def init_mlp(generator: torch.Generator, cfg, device: torch.device) -> dict:
 
 
 def apply_mlp(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x + the MLP of x; a float32 x (whisper's encoder) meets bfloat16
+    weights in float32, as in the reference."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    up = h @ params["w_up"]
+    up = dot(h, params["w_up"])
     if cfg.mlp_act == "swiglu":
-        up = silu(h @ params["w_gate"]) * up
+        up = silu(dot(h, params["w_gate"])) * up
     else:
         # jax.nn.gelu defaults to the tanh approximation
         up = F.gelu(up, approximate="tanh")
-    return x + up @ params["w_down"]
+    return x + dot(up, params["w_down"])

@@ -1,25 +1,31 @@
-"""Decoder-stack model: init / forward / prefill / decode_step.
+"""Decoder-stack model: init / forward / prefill / decode_step / loss.
 
 Parameters are a plain dict: `embed`, `final_norm`, `lm_head` (unless the
 embeddings are tied), `layers`, a list of `n_repeat` unit dicts keyed
-`b{i}_{kind}` as in the reference, and `shared`, one dict of the blocks
-marked `shared` (Zamba2's attention + MLP pair), used at every repeat.
-Weights are stored (in, out) and used as `x @ W`, the reference's layout,
-so `convert.py` copies them as they are.
+`b{i}_{kind}` as in the reference, `shared`, one dict of the blocks
+marked `shared` (Zamba2's attention + MLP pair), used at every repeat,
+and, for an encoder-decoder (whisper), `encoder`: {"layers": a list of
+`encoder.n_layers` dicts {"b0_attn", "b1_mlp"}, "final_norm"}.  Weights
+are stored (in, out) and used as `x @ W`, the reference's layout, so
+`convert.py` copies them as they are.
 
-Ported block kinds: attention, MLP, mixture-of-experts, Mamba2 and RWKV6.
-Cross-attention, the encoder and patch prefixes raise NotImplementedError.
-The MoE block's aux loss is not returned: it waits for training.
+Block kinds: attention, cross-attention, MLP, mixture-of-experts, Mamba2
+and RWKV6.  whisper's conv frontend and llava's vision tower are the
+reference's modality stubs: batches carry `frames` (B, F, d) for the
+encoder and `patches` (B, n_patches, d), put in front of the tokens.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
-from .attention import (attention_decode, attention_full, decode_index,
-                        init_attention)
+from .attention import (attention_decode, attention_full,
+                        cross_attention_full, decode_index, encode_cross_kv,
+                        encoder_attention, init_attention)
 from .common import dense_init, dtype_of, rms_norm
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
@@ -30,25 +36,22 @@ from .ssm import (init_mamba2, init_rwkv6, mamba2_decode, mamba2_full,
 Params = Dict[str, Any]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
-_INIT = {"attn": init_attention, "mlp": init_mlp, "moe": init_moe,
-         "mamba2": init_mamba2, "rwkv6": init_rwkv6}
+_INIT = {"attn": init_attention,
+         "cross_attn": lambda g, c, d: init_attention(g, c, d, cross=True),
+         "mlp": init_mlp, "moe": init_moe, "mamba2": init_mamba2,
+         "rwkv6": init_rwkv6}
 _FULL = {"mamba2": mamba2_full, "rwkv6": rwkv6_full}
 _DECODE = {"mamba2": mamba2_decode, "rwkv6": rwkv6_decode}
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port has not ported yet."""
+    """Raise NotImplementedError for a block kind the port has not
+    ported."""
     for b in cfg.unit:
         if b.kind not in _INIT:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {b.kind!r} is not ported yet"
                 f" (ported: {sorted(_INIT)})")
-    if cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: the encoder is not ported"
-                                  " yet")
-    if cfg.n_patches:
-        raise NotImplementedError(f"{cfg.name}: patch prefixes are not"
-                                  " ported yet")
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -74,6 +77,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
               for i, b in enumerate(cfg.unit) if b.shared}
     if shared:
         params["shared"] = shared
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [{"b0_attn": init_attention(generator, cfg, device),
+                        "b1_mlp": init_mlp(generator, cfg, device)}
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
+                                     device=device)}
     return params
 
 
@@ -90,44 +100,147 @@ def _blocks(params: Params, cfg: ArchConfig, r: int):
         yield name, b, p
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            mode: str = "train", impl: Optional[str] = None):
-    """Full-sequence pass over tokens (B, S).
+def encoder_apply(params: Params, cfg: ArchConfig,
+                  frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, F, d), the stub frontend's output -> the encoder's
+    hidden states, in the frames' dtype (float32 in the reference's
+    batches, whatever the weights' dtype)."""
+    x = frames
+    for layer in params["encoder"]["layers"]:
+        x = encoder_attention(layer["b0_attn"], cfg, x)
+        x = apply_mlp(layer["b1_mlp"], cfg, x)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
-    mode="train":   returns logits (B, S, V)
+
+def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, with the patches (cast to the embedding dtype) in
+    front where the config takes them."""
+    x = params["embed"][tokens]
+    if cfg.n_patches and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
+
+
+def _repeat_full(params: Params, cfg: ArchConfig, r: int, x, aux, *,
+                 mode: str, enc_out, impl, with_aux: bool):
+    """One repeat of the unit over the full sequence: (x, aux, caches);
+    the MoE blocks' aux loss is added to `aux` only `with_aux` (a serving
+    prefill leaves it out, and with it its launches)."""
+    caches = {}
+    for name, b, p in _blocks(params, cfg, r):
+        c = None
+        if b.kind == "attn":
+            x, c = attention_full(p, cfg, x, mode=mode)
+        elif b.kind == "cross_attn":
+            kv = encode_cross_kv(p, cfg, enc_out)
+            x = cross_attention_full(p, cfg, x, kv)
+            c = kv if mode == "prefill" else None
+        elif b.kind == "mlp":
+            x = apply_mlp(p, cfg, x)
+        elif b.kind == "moe" and with_aux:
+            x, a = apply_moe(p, cfg, x, return_aux=True)
+            aux = aux + a
+        elif b.kind == "moe":
+            x = apply_moe(p, cfg, x)
+        else:
+            x, c = _FULL[b.kind](p, cfg, x, mode=mode, impl=impl)
+        if c is not None:
+            caches[name] = c
+    return x, aux, caches
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            mode: str = "train", impl: Optional[str] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            return_aux: bool = False, remat: bool = False):
+    """Full-sequence pass over tokens (B, S), after `patches` (B, P, d)
+    where the config takes them (the logits then cover P + S positions),
+    with the encoder run over `frames` (B, F, d) where it has one.
+
+    mode="train":   returns logits (B, P + S, V)
     mode="prefill": returns (last_logits (B, 1, V), cache), the cache keyed
                     like `init_cache`, each leaf stacked over n_repeat:
-                    attention K/V (n_repeat, B, S', K, hd) with S' = S or,
-                    under SWA, the ring-aligned last window; the recurrent
-                    blocks' O(1) state in `init_cache`'s shapes.
-    `impl` is passed to the scans of `kernels.ops` ("plain" runs their
-    plain versions).
+                    attention K/V (n_repeat, B, S', K, hd) with S' = P + S
+                    or, under SWA, the ring-aligned last window;
+                    cross-attention K/V (n_repeat, B, F, K, hd) of the
+                    encoder output; the recurrent blocks' O(1) state in
+                    `init_cache`'s shapes.
+    `return_aux` appends the summed MoE load-balance loss (an f32 scalar,
+    0 without MoE blocks) to either return.  `remat` recomputes each
+    repeat's activations in the backward pass (`torch.utils.checkpoint`,
+    the reference's `jax.checkpoint` of its scan body).  `impl` is passed
+    to the scans of `kernels.ops` ("plain" runs their plain versions).
     """
     check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown forward mode {mode!r}")
-    x = params["embed"][tokens]
+    enc_out = None
+    if cfg.encoder is not None:
+        if frames is None:
+            raise ValueError(f"{cfg.name} has an encoder: pass frames=")
+        enc_out = encoder_apply(params, cfg, frames)
+    x = embed_inputs(params, cfg, tokens, patches)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_block: Dict[str, list] = {}
     for r in range(cfg.n_repeat):
-        for name, b, p in _blocks(params, cfg, r):
-            c = None
-            if b.kind == "attn":
-                x, c = attention_full(p, cfg, x, mode=mode)
-            elif b.kind == "mlp":
-                x = apply_mlp(p, cfg, x)
-            elif b.kind == "moe":
-                x = apply_moe(p, cfg, x)
-            else:
-                x, c = _FULL[b.kind](p, cfg, x, mode=mode, impl=impl)
-            if c is not None:
-                per_block.setdefault(name, []).append(c)
+        step = functools.partial(_repeat_full, params, cfg, r, mode=mode,
+                                 enc_out=enc_out, impl=impl,
+                                 with_aux=return_aux)
+        if remat:
+            x, aux, caches = torch.utils.checkpoint.checkpoint(
+                step, x, aux, use_reentrant=False)
+        else:
+            x, aux, caches = step(x, aux)
+        for name, c in caches.items():
+            per_block.setdefault(name, []).append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         cache = {name: {key: torch.stack([c[key] for c in cs])
                         for key in cs[0]}
                  for name, cs in per_block.items()}
-        return x[:, -1:] @ _head(params, cfg), cache
-    return x @ _head(params, cfg)
+        logits = x[:, -1:] @ _head(params, cfg)
+        return (logits, cache, aux) if return_aux else (logits, cache)
+    logits = x @ _head(params, cfg)
+    return (logits, aux) if return_aux else logits
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, aux_weight: float = 0.01, remat: bool = False
+            ) -> torch.Tensor:
+    """Next-token cross-entropy over the text positions (+ aux_weight x
+    the MoE load-balance loss), the reference's `loss_fn`.
+
+    batch: "tokens", "labels" (B, S) and, where the config takes them,
+    "patches" / "frames".  The targets are labels[:, 1:] with -1 (ignored)
+    after the last; the modality prefix is unlabeled.  The cross-entropy is
+    taken in f32, in chunks of min(512, S) positions halved until they
+    divide S, and averaged over the valid targets.
+    """
+    logits, aux = forward(params, cfg, batch["tokens"], mode="train",
+                          frames=batch.get("frames"),
+                          patches=batch.get("patches"), return_aux=True,
+                          remat=remat)
+    labels = batch["labels"]
+    txt = logits[:, -labels.shape[1]:]
+    B, S, _ = txt.shape
+    targets = torch.cat([labels[:, 1:], labels.new_full((B, 1), -1)], dim=1)
+    cs = min(512, S)
+    while S % cs:
+        cs //= 2
+    nll_sum = torch.zeros((), dtype=torch.float32, device=txt.device)
+    count = 0
+    for i in range(0, S, cs):
+        zf = txt[:, i:i + cs].float()
+        t = targets[:, i:i + cs]
+        zs = zf - zf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(zs).sum(dim=-1))
+        valid = t >= 0
+        tl = zs.gather(-1, t.clamp(min=0)[..., None])[..., 0]
+        nll_sum = nll_sum + torch.where(valid, lse - tl, 0.0).sum()
+        count = count + valid.sum()
+    return nll_sum / torch.clamp(count, min=1) + aux_weight * aux
 
 
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -138,7 +251,9 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     `pos` (host int or (B,) numpy array) is the absolute position of each
     new token.  The cache is updated in place and returned.  `impl` is
     passed to `ops.decode_attention` ("plain" runs the plain attention);
-    the recurrent blocks take one plain step, as in the reference.
+    the recurrent blocks take one plain step, as in the reference, and
+    cross-attention reads the cache's encoder K/V with the plain attention
+    (the reference computes it in jnp, outside its kernel).
     This is the paper's tau(n, L) iteration: weight streaming + the KV scan
     over `pos` cached tokens (+ the O(1) state of recurrent blocks).
     """
@@ -157,6 +272,9 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                 x = attention_decode(p, cfg, x, {"k": c["k"][r],
                                                  "v": c["v"][r]},
                                      idx, impl=impl)
+            elif b.kind == "cross_attn":
+                x = cross_attention_full(p, cfg, x, {"k": c["k"][r],
+                                                     "v": c["v"][r]})
             elif b.kind == "mlp":
                 x = apply_mlp(p, cfg, x)
             elif b.kind == "moe":
@@ -171,11 +289,13 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
-               device="cuda", dtype: Optional[torch.dtype] = None) -> Cache:
+               enc_frames: int = 0, device="cuda",
+               dtype: Optional[torch.dtype] = None) -> Cache:
     """Zero decode cache keyed by block name, in the reference's shapes
     and dtypes, one entry per repeat (of a shared block too): attention
-    K/V hold `max_seq` slots (or the SWA window if smaller); Mamba2 and
-    RWKV6 blocks hold O(1) state."""
+    K/V hold `max_seq` slots (or the SWA window if smaller);
+    cross-attention K/V `enc_frames` encoder positions; Mamba2 and RWKV6
+    blocks hold O(1) state."""
     device = resolve_device(device)
     check_supported(cfg)
     dt = dtype or dtype_of(cfg)
@@ -192,6 +312,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
             slots = min(cfg.swa_window, max_seq) if cfg.swa_window \
                 else max_seq
             cache[name] = {key: zeros(slots, cfg.n_kv_heads, cfg.hd)
+                           for key in ("k", "v")}
+        elif b.kind == "cross_attn":
+            cache[name] = {key: zeros(enc_frames, cfg.n_kv_heads, cfg.hd)
                            for key in ("k", "v")}
         elif b.kind == "mamba2":
             cache[name] = {

@@ -11,11 +11,14 @@ The expert products stay plain `torch.einsum`s over the (E, C, d) buffer,
 as the reference leaves them to XLA outside any Pallas kernel: they read
 every expert's weights whatever the routing.
 
-Forward only.  The reference's gather-only custom-VJP primitives
-(`_permute`, `_slot_gather`, `_pick`) and the index maps only their
-backward passes read (`token_slot`, `slot_s`) wait for the training slice
-(ROADMAP A 5), as does `apply_moe`'s aux loss; `load_balance_loss` is here
-as a plain function.
+Training takes autograd's gradients of the dispatch's gathers (a
+scatter-add), as the reference's path does: its gather-only custom-VJP
+primitives `_permute`, `_slot_gather` and `_pick` were tried there and
+refuted, and no code of it calls them.  They are ported below as
+`torch.autograd.Function`s, with the index maps only their backward
+passes read (`backward_maps`: `token_slot`, `slot_s`), and stay off
+`apply_moe`'s path as they do in the reference.  `apply_moe(...,
+return_aux=True)` also returns the Switch load-balance loss.
 """
 from __future__ import annotations
 
@@ -30,6 +33,64 @@ from .common import dense_init, dtype_of, rms_norm, silu
 # mesh, so the whole batch is one group, as on a single device there;
 # per-shard groups come with the distribution layer (ROADMAP A 6).
 DISPATCH_GROUPS = 1
+
+
+# --- gather-only autodiff primitives (off the path; see above) ---------
+# Every index map here is a (partial) permutation, so each backward pass
+# is a gather by the inverse map instead of a scatter-add.
+
+class Permute(torch.autograd.Function):
+    """y[i] = x[perm[i]]; backward g[inv_perm] (inv_perm = perm^-1)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return g[inv_perm], None, None
+
+
+class SlotGather(torch.autograd.Function):
+    """buf[slot] = hf_pad[slot_token[slot]] (the sentinel row Tg of hf_pad
+    is zeros).  Backward: each token feeds at most k slots, which
+    token_slot lists (assignment-major, sentinel E*C for dropped ones), so
+    d_hf is a sum over k of a gather; the sentinel row gets zeros."""
+
+    @staticmethod
+    def forward(ctx, hf_pad, slot_token, token_slot, k):
+        ctx.save_for_backward(token_slot)
+        ctx.k, ctx.n_rows = k, hf_pad.shape[0]
+        return hf_pad[slot_token]
+
+    @staticmethod
+    def backward(ctx, g):
+        (token_slot,) = ctx.saved_tensors
+        d = g.shape[1]
+        g_pad = torch.cat([g, g.new_zeros(1, d)])
+        d_hf = g_pad[token_slot].reshape(-1, ctx.k, d).sum(1)
+        d_hf = torch.cat([d_hf, g.new_zeros(ctx.n_rows - d_hf.shape[0], d)])
+        return d_hf, None, None, None
+
+
+class Pick(torch.autograd.Function):
+    """picked[s] = keep[s] ? out_flat[dest[s]] : 0.  Backward: a gather by
+    the inverse map slot_s (slot -> sorted assignment, sentinel Tk ->
+    zero)."""
+
+    @staticmethod
+    def forward(ctx, out_flat, dest, keep, slot_s):
+        ctx.save_for_backward(keep, slot_s)
+        return torch.where(keep[:, None], out_flat[dest], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        keep, slot_s = ctx.saved_tensors
+        gm = torch.where(keep[:, None], g, 0)
+        gm_pad = torch.cat([gm, gm.new_zeros(1, g.shape[1])])
+        return gm_pad[slot_s], None, None, None
 
 
 def init_moe(generator: torch.Generator, cfg, device: torch.device) -> dict:
@@ -103,6 +164,21 @@ def _dispatch_group(hf: torch.Tensor, idx: torch.Tensor, E: int, k: int,
     return buf.reshape(E, C, d), (dest, keep, inv_order)
 
 
+def backward_maps(dest: torch.Tensor, keep: torch.Tensor,
+                  inv_order: torch.Tensor, E: int, C: int):
+    """The index maps only the gather-only backward passes read, from
+    `_dispatch_group`'s metadata: token_slot (Tk,), the slot of each
+    assignment in token-major order (E*C where dropped), and slot_s (E*C,),
+    the sorted assignment each slot holds (Tk where empty)."""
+    Tk = dest.shape[0]
+    token_slot = torch.where(keep[inv_order], dest[inv_order], E * C)
+    safe_dest = torch.where(keep, dest, E * C)
+    slot_s = torch.full((E * C + 1,), Tk, dtype=torch.long,
+                        device=dest.device)
+    slot_s[safe_dest] = torch.arange(Tk, device=dest.device)
+    return token_slot, slot_s[:E * C]
+
+
 def _combine_group(out_e: torch.Tensor, meta, gates: torch.Tensor,
                    k: int) -> torch.Tensor:
     dest, keep, inv_order = meta
@@ -123,17 +199,23 @@ def capacity(cfg, T: int, S: int) -> int:
     return max(int(Tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
 
 
-def apply_moe(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> x + the routed experts' SwiGLU output."""
+def apply_moe(params: dict, cfg, x: torch.Tensor, *,
+              return_aux: bool = False):
+    """x (B, S, d) -> x + the routed experts' SwiGLU output, and with
+    `return_aux` also the block's `load_balance_loss` (f32 scalar)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, B * S, S)
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     hf = h.reshape(B * S, d)
-    gates, idx = router_topk(hf.float() @ params["router"], k)
+    logits = hf.float() @ params["router"]
+    gates, idx = router_topk(logits, k)
     buf, meta = _dispatch_group(hf, idx, E, k, C)               # (E, C, d)
     up = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
     gate = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
     out_e = torch.einsum("ecf,efd->ecd", silu(gate) * up, params["w_down"])
     y = _combine_group(out_e, meta, gates, k)                   # (Tg, d) f32
-    return x + y.reshape(B, S, d).to(x.dtype)
+    out = x + y.reshape(B, S, d).to(x.dtype)
+    if return_aux:
+        return out, load_balance_loss(logits, idx, E)
+    return out

@@ -4,7 +4,10 @@ Both are O(1)-state decoders, the architectures for which the paper's 1/W
 law weakens: no per-token KV growth.  Prefill runs the whole prompt's
 recurrence through `kernels.ops` (`ssd_scan`, `wkv_scan`): the
 hand-written kernel on the card, the plain sequential scan on the CPU.
-Decode takes one plain step per token, as the reference does.
+Decode takes one plain step per token, as the reference does.  The
+kernels have no backward pass, so these blocks train on the CPU only: on
+the card a full-sequence call whose inputs need a gradient raises
+(ROADMAP A 5b).
 
 Conventions:
   Mamba2:  S_t = exp(A dt_t) S_{t-1} + dt_t x_t (x) B_t ;  y_t = C_t . S_t + D x_t

@@ -39,6 +39,12 @@ the decode and the prefill phase, and two Table E cells drained by
 `engine="graph"` on the card equal the numpy engine pool for pool
 (chip_smoke.py's `fleet_parity`: integer and ordering fields exact, meters
 at rtol 1e-9) and the committed rows of benchmarks/results/fleet_grid.json.
+Training: each kernel wrapper raises on inputs that require grad where
+autograd records (it has no backward) and runs under no_grad and
+inference_mode; chip_smoke.py's 14a step (whisper-medium reduced, card
+against the CPU at tests/test_torch_training.py's tolerances); whisper's
+reduced decode through flash_decode after a prefill with encoder frames,
+against the plain attention on the same cache.
 The SLO sizing loop under that drain: the hand-built FleetOpt fleet of the
 topology search bench sized by `size_to_slo_spec(engine="graph",
 device="cuda")` equals numpy's sizing (chip_smoke.py's `sizing_diffs`:
@@ -90,7 +96,8 @@ from repro_torch.serving import run_fleet_grid
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
 import port_fleet_bench as PFB  # noqa: E402
-from chip_smoke import fleet_parity, sizing_diffs  # noqa: E402
+from chip_smoke import (LOGIT_REL_BOUND, fleet_parity,  # noqa: E402
+                        rel_rows, sizing_diffs, step_diffs, step_on)
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -148,6 +155,7 @@ def _n_sm():
     (16, 16, 8, 64, 256), (4, 16, 8, 64, 1024),
     (2, 16, 4, 256, 300), (1, 16, 1, 256, 2000), (2, 24, 8, 80, 3000),
     (3, 16, 2, 8, 50), (16, 32, 8, 128, 8192), (2, 8, 8, 32, 20000),
+    (2, 16, 16, 64, 24), (2, 56, 8, 128, 2916),   # whisper, llava decode
 ])
 def test_flash_decode_matches_plain_on_card(gen, B, H, K, D, T, dtype):
     _fd_check(*_fd_inputs(gen, B, H, K, D, T, dtype))
@@ -814,3 +822,88 @@ def test_slo_sizing_under_graph_drain_equals_numpy_on_card(gen):
             round(got.ttft_p99_s, 3)) == (
         want["instances"], want["compliant"], want["slo_feasible"],
         want["measured"], want["ttft_p99_s"])
+
+
+# ---- training (ROADMAP A 5) -------------------------------------------------
+
+def _grad_inputs(gen, name):
+    def t(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    if name == "flash_decode":
+        return flash_decode, (t(2, 4, 16), t(2, 5, 2, 16), t(2, 5, 2, 16),
+                              lengths)
+    if name == "flash_decode_int8":
+        kq, vq, ks, vs = quantize_kv(t(2, 5, 2, 16), t(2, 5, 2, 16))
+        return flash_decode_int8, (t(2, 4, 16), kq, vq, ks, vs, lengths)
+    if name == "mamba_scan":
+        return mamba_scan, (t(1, 6, 2, 8), t(1, 6, 8), t(1, 6, 8),
+                            -t(1, 6, 2).abs())
+    return wkv6, (t(1, 6, 2, 8), t(1, 6, 2, 8), t(1, 6, 2, 8),
+                  torch.rand(1, 6, 2, 8, generator=gen, device="cuda"),
+                  t(2, 8))
+
+
+@pytest.mark.parametrize("name", ["flash_decode", "flash_decode_int8",
+                                  "mamba_scan", "wkv6"])
+def test_kernel_wrappers_refuse_grad_on_card(gen, name):
+    fn, args = _grad_inputs(gen, name)
+    with torch.no_grad():
+        want = fn(*args)
+    with torch.inference_mode():
+        again = fn(*args)
+    grad_args = tuple(a.requires_grad_() if a.is_floating_point() else a
+                      for a in args)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="A 5b"):
+        fn(*grad_args)
+    assert fn.launches == before
+    with torch.no_grad():
+        out = fn(*grad_args)
+    for a, b, c in zip(*(x if isinstance(x, tuple) else (x,)
+                         for x in (want, again, out))):
+        torch.testing.assert_close(b, a, atol=0, rtol=0)
+        torch.testing.assert_close(c, a, atol=0, rtol=0)
+
+
+def test_train_step_card_matches_cpu(gen):
+    """chip_smoke.py's 14a on whisper-medium reduced (float32)."""
+    from repro_torch.data import batch_iterator
+    from repro_torch.training.optimizer import tree_map
+    cfg = get_config("whisper-medium").reduced()
+    batch = next(batch_iterator(cfg, batch=2, seq=24))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = step_on(cfg, tree_map(torch.clone, params), batch, "cpu")
+    card = step_on(cfg, tree_map(lambda t: t.cuda(), params), batch, "cuda")
+    assert max(step_diffs(cpu, card)) <= 1
+
+
+def test_whisper_decode_through_kernel_on_card(gen):
+    """whisper-medium reduced: prefill with encoder frames, then 4 decode
+    steps through flash_decode against the plain attention on copies of
+    the same cache (phase 4's bound), 2 layers x 4 launches."""
+    cfg = get_config("whisper-medium").reduced()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    frames = torch.randn(2, cfg.encoder.n_frames, cfg.d_model, generator=gen,
+                         device="cuda") * 0.02
+    prompt = torch.randint(0, cfg.vocab, (2, 12), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        logits, cache = M.forward(params, cfg, prompt, mode="prefill",
+                                  frames=frames)
+        cache["b0_attn"] = {key: torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, 4)) for key, t in cache["b0_attn"].items()}
+        tokens = logits[:, -1].argmax(-1, keepdim=True)
+        before = flash_decode.launches
+        for i in range(4):
+            copy = {n: {k: t.clone() for k, t in c.items()}
+                    for n, c in cache.items()}
+            plain, _ = M.decode_step(params, cfg, tokens, copy, 12 + i,
+                                     impl="plain")
+            a, cache = M.decode_step(params, cfg, tokens, cache, 12 + i)
+            rel, _, _, tie_ok = rel_rows(a[:, 0], plain[:, 0])
+            assert max(rel) <= LOGIT_REL_BOUND and tie_ok
+            tokens = a[:, 0].argmax(-1, keepdim=True)
+    assert flash_decode.launches - before == cfg.attn_block_count * 4

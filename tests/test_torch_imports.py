@@ -49,7 +49,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.serving.engine, repro_torch.serving.autoscale, "
             "repro_torch.serving.soa, repro_torch.serving.fleetsim, "
             "repro_torch.serving.graph_engine, repro_torch.core.topo_search, "
-            "repro_torch.core.analyzer, repro_torch.core.adaptive; "
+            "repro_torch.core.analyzer, repro_torch.core.adaptive, "
+            "repro_torch.training, repro_torch.data, "
+            "repro_torch.launch.train; "
             f"sys.path.insert(0, {str(ROOT / 'tools')!r}); "
             "import port_fleet_bench, port_paper_tables, port_trace_report; "
             "print(sorted(m for m in sys.modules "
@@ -65,10 +67,16 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip("a CUDA device is present")
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
+    from repro_torch.training import train_loop, AdamW
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--preset", "smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(get_config("yi-6b").reduced(), steps=1, batch_iter=None,
+                   opt=AdamW())
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_params(get_config("yi-6b").reduced(), torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
