@@ -246,13 +246,43 @@ Phases, in order; any failure exits non-zero:
               2880 patches and a 32-token prompt prefilled, 4 decode steps
               at positions offset by n_patches through flash_decode (G =
               7, D = 128) against plain, launches exactly 2 x 4;
-              14f zamba2-2.7b and rwkv6-1.6b reduced with trainable
-              weights: a train step raises the kernels' no-backward
-              RuntimeError (ROADMAP A 5b); the same forward under no_grad
-              launches the scan as before;
               then phase 14's flash_decode launches and shapes on a line
               (the shapes must be those phase 3 checked),
               and its walls beside the card's name and power limit;
+  15. ssm train  zamba2 and rwkv6 trained on the card through the chunk
+              scans of models/ssm.py (TF32 off):
+              15a zamba2-2.7b and rwkv6-1.6b reduced in float32, one
+              `make_train_step` on the card's host CPU and on the card at
+              batch 2 x 160 (two 128-token Mamba2 chunks, ten 16-token
+              RWKV6 blocks), held at 14a's bounds, every count set to 0
+              just before the card's step and read just after: no kernel
+              launched; a planted fault made from the unchanged module
+              (SSM_FAULT: `_carry` hands each chunk a zero state) must
+              pass a bound SSM_FAULT_FACTOR times or more; each scan
+              wrapper called with grad raises the no-backward RuntimeError
+              and launches nothing; a no_grad prefill of the same tokens
+              launches each scan exactly once per block;
+              15b each chunk scan at its model's full width and 15c's
+              batch (Mamba2 (4, 512, 80, 64, 64), RWKV6 (4, 512, 32, 64)
+              at w in [0.05, 1) and [0.05, 0.06]) against the sequential
+              plain scan on the card: y and the final state within
+              tests/models/test_ssm_blocks.py's limits (CHUNK_SCAN_TOL),
+              autograd's gradient of every input within GRAD_REL of its
+              max|g|, all finite; the wall of one forward and backward;
+              15c zamba2-2.7b (45 Mamba2 blocks + 9 shared attention / MLP)
+              and rwkv6-1.6b (24 blocks) at full width and depth, bf16: 10
+              AdamW steps at 14c's batch 4 x 512, every loss, grad_norm and
+              updated weight finite, step 9's loss below step 0's, no
+              kernel launched; peak memory and the wall of each step; then,
+              under no_grad, the trained weights prefill a 4 x 512 batch
+              through the scan kernel (bf16: finite, one launch a block)
+              and on a float32 copy through the kernel and through
+              impl="plain", last logits within SCAN_LOGIT_BOUND;
+              15d `launch/train.py --arch <each> --preset 10m --steps 100
+              --batch 8 --seq 128 --lr 2e-3`: as 14b, the last logged loss
+              >= 1 nat below the first, the checkpoint reloaded bit-equal
+              with `to_reference_layout`'s keys;
+              then phase 15's walls beside the card's name and power limit;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -270,6 +300,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -311,6 +342,7 @@ from repro_torch.models.attention import encode_cross_kv  # noqa: E402
 from repro_torch.models.convert import (flatten_paths,  # noqa: E402
                                         to_reference_layout)
 from repro_torch.models.common import rms_norm, silu  # noqa: E402
+from repro_torch.models import ssm as ssm_blocks  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ContextRouter, PoolEngine, Request, RouterPolicy, SimVsAnalytical,
     TraceRecorder, analytical_decode_tok_per_watt, build_timeline,
@@ -488,6 +520,32 @@ LLAVA_REPEATS, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_DECODE_STEPS = 2, 2, 32, 4
 TRAIN_DECODE_SHAPES = [
     (WHISPER_TRAIN["batch"], 16, 16, 64, ENC_PROMPT + ENC_DECODE_STEPS),
     (LLAVA_BATCH, 56, 8, 128, 2880 + LLAVA_PROMPT + LLAVA_DECODE_STEPS)]
+# Phase 15 ("SSM training").  15a: zamba2 and rwkv6 reduced in float32,
+# one train step on the card's host CPU and on the card at 14a's bounds,
+# at 2 x 160 tokens: two of Mamba2's 128-token chunks, ten of the RWKV6
+# scan's 16-token blocks (three 64-token chunks); the planted fault, made
+# from the unchanged module, must pass a bound by SSM_FAULT_FACTOR or more.
+SSM_TRAIN_BATCH = dict(batch=2, seq=160)
+SSM_FAULT = "the chunk scans' carried state zeroed at each chunk boundary"
+SSM_FAULT_FACTOR = 10.0
+# a direct call of each scan wrapper with grad (tiny inputs)
+GUARD_SHAPE = {"mamba_scan": (1, 6, 2, 8, 8), "wkv6": (1, 6, 2, 8)}
+# 15b: each chunk scan at its model's full width (zamba2: nh 80, hd = ds =
+# 64; rwkv6: H 32, hd 64) at 15c's batch 4 x 512, against the sequential
+# plain scan on the card: y and the final state within
+# tests/models/test_ssm_blocks.py's limits (Mamba atol 5e-4, WKV atol 2e-3
+# and rtol 1e-3, elementwise), every input's gradient within GRAD_REL of
+# its max|g|; wkv6 at w in [0.05, 1) and the strongest decay [0.05, 0.06]
+# (C2)
+CHUNK_SCAN_SHAPES = {"mamba2": (4, 512, 80, 64, 64), "wkv6": (4, 512, 32, 64)}
+CHUNK_SCAN_W = ((0.05, 1.0), (0.05, 0.06))
+CHUNK_SCAN_TOL = {"mamba2": dict(atol=5e-4, rtol=0.0),
+                  "wkv6": dict(atol=2e-3, rtol=1e-3)}
+# 15c: both at full width and depth, bf16, 14c's batch, steps and AdamW
+SSM_TRAIN = MOE_TRAIN
+# 15d: the launcher at the reference's "10m" preset, 14b's other arguments
+SSM_DEMO_ARGS = ["--preset", "10m", "--steps", "100", "--batch", "8",
+                 "--seq", "128", "--lr", "2e-3"]
 
 
 def log(msg: str) -> None:
@@ -2623,21 +2681,25 @@ def phase_train_parity():
                                  f" {TRAIN_FAULTS[arch]}")
 
 
-def phase_train_demo():
-    """14b: launch/train.py's path on the reference's 100M demo."""
-    path = ROOT / "build" / "chip_smoke" / "yi-6b-100m.npz"
+def run_launcher(tag, argv):
+    """`launch/train.py` on the card with `argv` and a checkpoint: the last
+    logged loss at least DEMO_FALL nats below the first (the reference
+    test's criterion), the checkpoint reloaded bit-equal, its keys those
+    of `to_reference_layout`.  Returns the wall (s)."""
+    arch, preset = (argv[argv.index(f) + 1] for f in ("--arch", "--preset"))
+    path = ROOT / "build" / "chip_smoke" / f"{arch}-{preset}.npz"
     path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    cfg, params, hist = launch_train.main(DEMO_ARGS + [
+    cfg, params, hist = launch_train.main(argv + [
         "--device", DEVICE, "--ckpt", str(path)])
     wall = time.perf_counter() - t0
     fall = hist[0]["loss"] - hist[-1]["loss"]
-    log(f"  14b {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, loss"
+    log(f"  {tag} {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, loss"
         f" {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} (fell"
         f" {fall:.4f} nats, must fall >= {DEMO_FALL}), {wall:.1f} s with the"
         f" checkpoint")
     if not fall >= DEMO_FALL:
-        raise SystemExit("14b: the demo's loss did not fall by 1 nat")
+        raise SystemExit(f"{tag}: {cfg.name}'s loss did not fall by 1 nat")
     with np.load(path) as data:
         keys = sorted(set(data.files) - {"__step__"})
     want = sorted(flatten_paths(to_reference_layout(params)))
@@ -2645,14 +2707,19 @@ def phase_train_demo():
                                                        params))
     same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
                                                   tree_leaves(loaded)))
-    log(f"  14b checkpoint {path.stat().st_size / 2**20:.0f} MiB, {len(keys)}"
-        f" leaves, keys equal to_reference_layout's: {keys == want}, step"
-        f" {step}, reloaded bit-equal: {same}")
+    log(f"  {tag} checkpoint {path.stat().st_size / 2**20:.1f} MiB,"
+        f" {len(keys)} leaves, keys equal to_reference_layout's:"
+        f" {keys == want}, step {step}, reloaded bit-equal: {same}")
     path.unlink()
-    if keys != want or step != int(DEMO_ARGS[DEMO_ARGS.index("--steps") + 1]) \
+    if keys != want or step != int(argv[argv.index("--steps") + 1]) \
             or not same:
-        raise SystemExit("14b: the checkpoint does not round-trip")
+        raise SystemExit(f"{tag}: the checkpoint does not round-trip")
     return wall
+
+
+def phase_train_demo():
+    """14b: launch/train.py's path on the reference's 100M demo."""
+    return run_launcher("14b", DEMO_ARGS)
 
 
 def phase_train_moe():
@@ -2859,42 +2926,12 @@ def phase_train_llava():
     return prefill, shape, launches
 
 
-def phase_train_guard():
-    """14f: the SSM scans refuse to train on the card, and serve as before
-    under no_grad."""
-    for arch, (kernel, _) in SSM.items():
-        cfg = get_config(arch).reduced()
-        params = M.init_params(cfg, torch.Generator(device=DEVICE)
-                               .manual_seed(0), DEVICE)
-        b = batch_to(next(batch_iterator(cfg, **TRAIN_BATCH)), DEVICE)
-        try:
-            loss_and_grads(params, cfg, b)
-        except RuntimeError as e:
-            msg = str(e)
-        else:
-            raise SystemExit(f"14f: {arch} trained through {kernel} on the"
-                             " card")
-        for fn in COUNTED.values():
-            fn.launches = 0
-        with torch.no_grad():
-            M.forward(params, cfg, b["tokens"])
-        counts = {name: fn.launches for name, fn in COUNTED.items()}
-        blocks = sum(blk.kind in ("mamba2", "rwkv6") for blk in cfg.unit) \
-            * cfg.n_repeat
-        log(f"  14f {arch} reduced: train raised RuntimeError"
-            f" ({msg.split(';')[0]}; names A 5b: {'A 5b' in msg}); under"
-            f" no_grad launches {counts}")
-        if not msg.startswith(kernel) or "A 5b" not in msg \
-                or counts != dict({n: 0 for n in counts}, **{kernel: blocks}):
-            raise SystemExit(f"14f: {arch}'s guard or no_grad path is off")
-
-
 def phase_train():
-    """Phase 14: 14a-14f, each timed; prints the walls beside the card."""
+    """Phase 14: 14a-14e, each timed; prints the walls beside the card."""
     walls = {}
     for tag, fn in (("14a", phase_train_parity), ("14b", phase_train_demo),
                     ("14c", phase_train_moe), ("14d", phase_train_whisper),
-                    ("14e", phase_train_llava), ("14f", phase_train_guard)):
+                    ("14e", phase_train_llava)):
         t0 = time.perf_counter()
         out = fn()
         walls[tag] = time.perf_counter() - t0
@@ -2919,6 +2956,295 @@ def phase_train():
         + f"; granite step {min(moe_step_walls) * 1e3:.1f}-"
         f"{max(moe_step_walls) * 1e3:.1f} ms, whisper train step"
         f" {whisper_step:.2f} s, llava prefill {llava_prefill:.2f} s")
+
+
+# ---- phase 15: SSM training ----------------------------------------------------
+
+def zero_counts():
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def counts_now():
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def scan_blocks(cfg):
+    """The Mamba2 / RWKV6 blocks of a config: the scan calls of a
+    full-sequence forward."""
+    return sum(blk.kind in ("mamba2", "rwkv6") for blk in cfg.unit) \
+        * cfg.n_repeat
+
+
+def carry_fault():
+    """15a's planted fault (SSM_FAULT), made from the unchanged module:
+    `models.ssm._carry` hands every chunk but the first a zero state, and
+    the final state keeps only the last chunk's own part."""
+    def zeroed(s0, decay, inc):
+        zeros = [torch.zeros_like(s0)] * (inc.shape[1] - 1)
+        return torch.stack([s0] + zeros, dim=1), inc[:, -1]
+    return patched(ssm_blocks, "_carry", zeroed)
+
+
+def phase_ssm_parity():
+    """15a: the SSMs' train step on the card against the CPU's; the scan
+    kernels refuse grad and still serve the prefill."""
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    for arch, (kernel, _) in SSM.items():
+        cfg = get_config(arch).reduced()
+        batch = next(batch_iterator(cfg, **SSM_TRAIN_BATCH))
+        cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        cpu = step_on(cfg, tree_map(torch.clone, cpu_params), batch, "cpu")
+        runs = {}
+        for tag, fault in (("card", None), ("fault", carry_fault)):
+            zero_counts()
+            card = step_on(cfg, tree_map(lambda t: t.to(DEVICE), cpu_params),
+                           batch, DEVICE, fault)
+            runs[tag] = step_diffs(cpu, card), counts_now()
+        (card, counts), (fault, _) = runs["card"], runs["fault"]
+        log(f"  15a {arch} reduced (f32, batch {SSM_TRAIN_BATCH['batch']} x"
+            f" {SSM_TRAIN_BATCH['seq']}): card vs CPU, error / bound: loss"
+            f" {card[0]:.3e}, worst grad leaf {card[1]:.3e}, worst updated"
+            f" leaf {card[2]:.3e}; launches in the card's step {counts}")
+        log(f"  15a {arch} control, {SSM_FAULT} on the card: loss"
+            f" {fault[0]:.3e}, grad {fault[1]:.3e}, update {fault[2]:.3e}"
+            f" (must reach {SSM_FAULT_FACTOR:g})")
+        if max(card) > 1:
+            raise SystemExit(f"15a: {arch}'s train step on the card disagrees"
+                             " with the CPU's")
+        if any(counts.values()):
+            raise SystemExit(f"15a: {arch}'s train step launched {counts}")
+        if max(fault) < SSM_FAULT_FACTOR:
+            raise SystemExit(f"15a: the gate does not catch {SSM_FAULT}")
+        # the kernel itself still refuses to be recorded
+        fn = SCANS[kernel][0]
+        args = [a.requires_grad_() if a.is_floating_point() else a
+                for a in scan_inputs(kernel, GUARD_SHAPE[kernel], gen)]
+        zero_counts()
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise SystemExit(f"15a: {kernel} ran with grad enabled")
+        launched = fn.launches
+        refused = launched == 0 and msg.startswith(kernel) \
+            and "chunk scans in models/ssm.py" in msg
+        # a no_grad prefill of the same tokens goes through the kernel
+        params = tree_map(lambda t: t.to(DEVICE), cpu_params)
+        zero_counts()
+        with torch.no_grad():
+            M.forward(params, cfg, batch_to(batch, DEVICE)["tokens"],
+                      mode="prefill")
+        counts = counts_now()
+        want = dict({n: 0 for n in counts}, **{kernel: scan_blocks(cfg)})
+        log(f"  15a {kernel} called with grad: RuntimeError"
+            f" ({msg.split(';')[0]}), launched {launched}; no_grad"
+            f" prefill of the same tokens launches {counts}")
+        if not refused or counts != want:
+            raise SystemExit(f"15a: {kernel}'s guard or {arch}'s prefill is"
+                             f" off (want {want})")
+
+
+def chunk_scan_case(kind, shape, gen, w_range=None):
+    """15b's float inputs, drawn as the blocks make them at init: Mamba2's
+    x, B, C = silu(normal) (`_mamba_inner`'s conv output through silu), dt
+    = softplus(normal), A = -linspace(1, 16, nh) (init's A_log), D = 1;
+    RWKV6's r, k, v normal, w uniform in w_range, u 0.5 normal."""
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device=DEVICE)
+
+    if kind == "mamba2":
+        B, S, nh, hd, ds = shape
+        return [silu(randn(B, S, nh, hd)), silu(randn(B, S, ds)),
+                silu(randn(B, S, ds)),
+                torch.nn.functional.softplus(randn(B, S, nh)),
+                -torch.linspace(1.0, 16.0, nh, device=DEVICE),
+                torch.ones(nh, device=DEVICE)]
+    B, S, H, hd = shape
+    lo, hi = w_range
+    w = lo + (hi - lo) * torch.rand(B, S, H, hd, generator=gen, device=DEVICE)
+    return [randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd), w,
+            0.5 * randn(H, hd)]
+
+
+def sequential_scan(kind, *args):
+    """The plain sequential scan on a chunk scan's arguments (Mamba2: on
+    xt = x dt and lA = dt A, with D x added)."""
+    if kind == "mamba2":
+        xh, Bm, Cm, dt, A, D = args
+        y, state = mamba_scan_ref(xh * dt[..., None], Bm, Cm, dt * A)
+        return y + xh * D[None, None, :, None], state
+    return wkv6_ref(*args)
+
+
+def scan_with_grads(fn, args, cot):
+    """y, the final state and the gradients of every argument under the
+    cotangents `cot` (of y and the state)."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y, state = fn(*leaves)
+    grads = torch.autograd.grad((y * cot[0]).sum() + (state * cot[1]).sum(),
+                                leaves)
+    return y.detach(), state.detach(), [g.detach() for g in grads]
+
+
+def chunk_scan_diffs(kind, got, ref):
+    """(y and state error / CHUNK_SCAN_TOL's limit, worst gradient error /
+    GRAD_REL of its max|g|, all finite): <= 1, <= 1 and True pass."""
+    (y, st, g), (yr, sr, gr) = got, ref
+    tol = CHUNK_SCAN_TOL[kind]
+    out = max(float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs()))
+                    .max()) for a, b in ((y, yr), (st, sr)))
+    grad = max(float((a - b).abs().max())
+               / (GRAD_REL * max(float(b.abs().max()), 1e-30))
+               for a, b in zip(g, gr))
+    finite = all(bool(torch.isfinite(t).all()) for t in (y, st, *g))
+    return out, grad, finite
+
+
+CHUNK_SCANS = {"mamba2": ssm_blocks.mamba2_chunk_scan,
+               "wkv6": ssm_blocks.wkv6_chunk_scan}
+
+
+def phase_chunk_scans():
+    """15b: the chunk scans at full width against the sequential scans."""
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    walls = {}
+    for kind, w_range in [("mamba2", None)] + [("wkv6", w)
+                                               for w in CHUNK_SCAN_W]:
+        shape = CHUNK_SCAN_SHAPES[kind]
+        args = chunk_scan_case(kind, shape, gen, w_range)
+        cot = [torch.randn(shape[:4], generator=gen, device=DEVICE),
+               torch.randn(shape[0], shape[2], shape[3], shape[-1],
+                           generator=gen, device=DEVICE)]
+        scan = CHUNK_SCANS[kind]
+        scan_with_grads(scan, args, cot)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = scan_with_grads(scan, args, cot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = scan_with_grads(functools.partial(sequential_scan, kind), args,
+                              cot)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        out, grad, finite = chunk_scan_diffs(kind, got, ref)
+        tag = f"{kind} {shape}" + (f" w in {list(w_range)}" if w_range
+                                   else "")
+        walls[tag] = wall
+        log(f"  15b {tag}: chunk scan vs sequential, error / bound: y and"
+            f" state {out:.3e} ({CHUNK_SCAN_TOL[kind]}; max|y|"
+            f" {float(ref[0].abs().max()):.1f}, max abs err"
+            f" {float((got[0] - ref[0]).abs().max()):.3e}), worst input"
+            f" gradient {grad:.3e} (GRAD_REL {GRAD_REL} of max|g|); finite"
+            f" {finite}; forward and backward {wall * 1e3:.1f} ms wall"
+            f" (sequential {ref_wall * 1e3:.1f} ms)")
+        if out > 1 or grad > 1 or not finite:
+            raise SystemExit(f"15b: the {kind} chunk scan disagrees with the"
+                             f" sequential scan at {tag}")
+        del args, got, ref
+    torch.cuda.empty_cache()
+    return walls
+
+
+def phase_ssm_full(name):
+    """15c: `name` at full width and depth, bf16, SSM_TRAIN's AdamW steps;
+    then the trained weights' prefill through the scan kernel."""
+    kernel = SSM[name][0]
+    cfg, params = load_model(name)
+    opt = AdamW(**SSM_TRAIN["opt"])
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    it = batch_iterator(cfg, batch=SSM_TRAIN["batch"], seq=SSM_TRAIN["seq"])
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for i in range(SSM_TRAIN["steps"]):
+        batch = batch_to(next(it), DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        rows.append(dict(loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]), lr=m["lr"],
+                         wall_s=time.perf_counter() - t0))
+    counts = counts_now()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    log(f"  15c {cfg.name}: {cfg.param_count() / 1e9:.3f} B params,"
+        f" {SSM_TRAIN['steps']} steps at batch {SSM_TRAIN['batch']} x"
+        f" {SSM_TRAIN['seq']}: peak {peak:.2f} GiB, launches {counts},"
+        f" every updated weight finite: {finite}")
+    for i, r in enumerate(rows):
+        log(f"    step {i}: loss {r['loss']:.4f} grad_norm"
+            f" {r['grad_norm']:.3f} lr {r['lr']:.2e} wall"
+            f" {r['wall_s'] * 1e3:.1f} ms")
+    if not finite or not all(math.isfinite(r[k]) for r in rows
+                             for k in ("loss", "grad_norm")):
+        raise SystemExit(f"15c: a non-finite loss, gradient or update"
+                         f" ({name})")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise SystemExit(f"15c: {name}'s loss did not fall in"
+                         f" {SSM_TRAIN['steps']} steps")
+    if any(counts.values()):
+        raise SystemExit(f"15c: {name}'s training launched {counts}")
+    del state, step
+    torch.cuda.empty_cache()
+    # the trained weights' prefill: the kernels on decays moved from init
+    prompt = batch_to(next(it), DEVICE)["tokens"]
+    with torch.no_grad():
+        zero_counts()
+        a16, _ = M.forward(params, cfg, prompt, mode="prefill")
+        counts = counts_now()
+        cfg32, params32 = to_f32(cfg, params)
+        del params
+        a, _ = M.forward(params32, cfg32, prompt, mode="prefill")
+        b, _ = M.forward(params32, cfg32, prompt, mode="prefill",
+                         impl="plain")
+    rel, agree, _, tie_ok = rel_rows(a[:, 0], b[:, 0])
+    want = dict({n: 0 for n in counts}, **{kernel: scan_blocks(cfg)})
+    log(f"  15c {cfg.name} trained, prefill of {tuple(prompt.shape)}: bf16"
+        f" through {kernel} launches {counts}, logits finite"
+        f" {bool(torch.isfinite(a16).all())}; float32 copy kernel vs plain"
+        f" max|d|/max|logits| {[f'{r:.3e}' for r in rel]} (bound"
+        f" {SCAN_LOGIT_BOUND}), top-1 equal {agree}")
+    if counts != want or not bool(torch.isfinite(a16).all()):
+        raise SystemExit(f"15c: {name}'s prefill launched {counts}, want"
+                         f" {want}, or its logits are not finite")
+    if max(rel) > SCAN_LOGIT_BOUND or not tie_ok:
+        raise SystemExit(f"15c: {name}'s trained prefill through {kernel}"
+                         " disagrees with its plain twin")
+    del params32
+    torch.cuda.empty_cache()
+    return [r["wall_s"] for r in rows], peak
+
+
+def phase_ssm_train():
+    """Phase 15: 15a-15d, each timed; prints the walls beside the card."""
+    walls, steps = {}, {}
+    t0 = time.perf_counter()
+    phase_ssm_parity()
+    walls["15a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan_walls = phase_chunk_scans()
+    walls["15b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in SSM:
+        steps[name] = phase_ssm_full(name)
+    walls["15c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in SSM:
+        run_launcher("15d", ["--arch", name] + SSM_DEMO_ARGS)
+    walls["15d"] = time.perf_counter() - t0
+    log(f"  phase 15 on {PFB.card_line()}: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + "; train step " + ", ".join(
+            f"{name} {min(w) * 1e3:.1f}-{max(w) * 1e3:.1f} ms (peak"
+            f" {peak:.2f} GiB)" for name, (w, peak) in steps.items())
+        + "; chunk scan forward and backward " + ", ".join(
+            f"{tag} {w * 1e3:.1f} ms" for tag, w in scan_walls.items()))
 
 
 def load_model(name):
@@ -3049,6 +3375,11 @@ def main() -> int:
     t14 = time.perf_counter()
     phase_train()
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    log("[15] SSM training: zamba2 and rwkv6 through the chunk scans of"
+        " models/ssm.py")
+    t15 = time.perf_counter()
+    phase_ssm_train()
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -64,17 +64,20 @@ def refuse_grad(name: str, *tensors) -> None:
 
     The kernels have no backward pass, and a wrapper fills its outputs
     through ctypes, so they carry no `grad_fn`: a loss built on them would
-    back-propagate as if the kernel's inputs were constants.  Under
-    `torch.no_grad()` or `torch.inference_mode()`, or on inputs that need
-    no gradient, nothing changes.
+    back-propagate as if the kernel's inputs were constants.  No training
+    path calls them: `forward(mode="train")` takes the chunk scans in
+    `models/ssm.py` and plain attention.  Under `torch.no_grad()` or
+    `torch.inference_mode()`, or on inputs that need no gradient, nothing
+    changes.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward pass, so its output"
             " would be detached from autograd's graph; call it under"
-            " torch.no_grad(), or train on the CPU, where the plain version"
-            " is differentiable (backward kernels or a differentiable chunk"
-            " scan on the card: ROADMAP A 5b)")
+            " torch.no_grad().  To train, go through"
+            " forward(mode=\"train\"), whose Mamba2 and RWKV6 blocks take"
+            " the chunk scans in models/ssm.py and whose attention is plain"
+            " tensor code")
 
 
 def load(source: str,

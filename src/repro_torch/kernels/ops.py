@@ -54,7 +54,9 @@ def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,
 def ssd_scan(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
              lA: torch.Tensor, *, impl: Optional[str] = None):
     """Mamba2 SSD scan from a zero state: (y (B,S,nh,hd), final state
-    (B,nh,hd,ds)), float32."""
+    (B,nh,hd,ds)), float32.  The prefill's scan; the kernel has no
+    backward, and `forward(mode="train")` takes `models.ssm.
+    mamba2_chunk_scan` instead."""
     if _plain(impl, xt, "ssd_scan"):
         _ms.check_inputs(xt, Bm, Cm, lA)
         return mamba_scan_ref(xt, Bm, Cm, lA)
@@ -65,7 +67,9 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, *,
              impl: Optional[str] = None):
     """RWKV6 recurrence from a zero state: (out (B,S,H,hd), final state
-    (B,H,hd,hd)), float32."""
+    (B,H,hd,hd)), float32.  The prefill's scan; the kernel has no
+    backward, and `forward(mode="train")` takes `models.ssm.
+    wkv6_chunk_scan` instead."""
     if _plain(impl, r, "wkv_scan"):
         _wk.check_inputs(r, k, v, w, u)
         return wkv6_ref(r, k, v, w, u)

@@ -170,8 +170,12 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     `return_aux` appends the summed MoE load-balance loss (an f32 scalar,
     0 without MoE blocks) to either return.  `remat` recomputes each
     repeat's activations in the backward pass (`torch.utils.checkpoint`,
-    the reference's `jax.checkpoint` of its scan body).  `impl` is passed
-    to the scans of `kernels.ops` ("plain" runs their plain versions).
+    the reference's `jax.checkpoint` of its scan body).  The recurrent
+    blocks' scan follows `mode`: "train" takes the chunk scans of
+    `models/ssm.py` on every device (differentiable, as the reference
+    trains), "prefill" the scans of `kernels.ops`, whose version `impl`
+    picks ("plain" runs the plain version on the card too); `impl` selects
+    nothing in mode "train".
     """
     check_supported(cfg)
     if mode not in ("train", "prefill"):

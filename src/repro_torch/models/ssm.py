@@ -1,13 +1,31 @@
 """Recurrent blocks: Mamba2 (SSD) and RWKV6 (Finch) time/channel mix.
 
 Both are O(1)-state decoders, the architectures for which the paper's 1/W
-law weakens: no per-token KV growth.  Prefill runs the whole prompt's
-recurrence through `kernels.ops` (`ssd_scan`, `wkv_scan`): the
-hand-written kernel on the card, the plain sequential scan on the CPU.
-Decode takes one plain step per token, as the reference does.  The
-kernels have no backward pass, so these blocks train on the CPU only: on
-the card a full-sequence call whose inputs need a gradient raises
-(ROADMAP A 5b).
+law weakens: no per-token KV growth.  A full-sequence block takes one of
+two scans, by `mode`:
+
+  * mode="train": the reference's chunk scans, `mamba2_chunk_scan` and
+    `wkv6_chunk_scan` below, plain tensor code that autograd
+    differentiates on every device, as the reference trains its blocks
+    through its jnp chunk scans;
+  * mode="prefill": `kernels.ops` (`ssd_scan`, `wkv_scan`), the
+    hand-written kernel on the card (no backward pass: it refuses to be
+    recorded by autograd) and the plain sequential scan on the CPU.
+
+Decode takes one plain step per token, as the reference does.
+
+`wkv6_chunk_scan` does not copy the reference's factored form as it
+stands: `k * exp(-cw)` about a 64-token chunk's start overflows float32
+once the chunk's summed log-decay passes ~88, a mean w below ~0.25
+(ROADMAP C2).  It takes the same factored form over blocks of at most
+SUB_CHUNK = 16 tokens, factored about each block's middle token, with the
+state carried from block to block: every exponent is then at most
+8 |log w|, finite for w >= 2e-5 on every token (the tests hold it at w =
+0.05 and 0.2 on every token of a 64-token chunk, where the reference's is
+not finite).  Wherever the reference is finite the two agree to rounding.
+`mamba2_chunk_scan` sums each pair's log-decay directly instead of
+differencing the chunk's cumulative sum, which loses digits at zamba2's
+decays (ROADMAP C12).
 
 Conventions:
   Mamba2:  S_t = exp(A dt_t) S_{t-1} + dt_t x_t (x) B_t ;  y_t = C_t . S_t + D x_t
@@ -92,17 +110,92 @@ def _mamba_out(params, cfg, x, z, y):
     return x + y.to(x.dtype) @ params["w_out"]
 
 
+def _blocks(a: torch.Tensor, L: int, fill: float = 0.0) -> torch.Tensor:
+    """(B, S, ...) -> (B, n, L, ...), padded with `fill` past S."""
+    B, S = a.shape[:2]
+    n = -(-S // L)
+    a = F.pad(a, (0, 0) * (a.dim() - 2) + (0, n * L - S), value=fill)
+    return a.reshape(B, n, L, *a.shape[2:])
+
+
+def _carry(s0: torch.Tensor, decay: torch.Tensor, inc: torch.Tensor):
+    """The chunk scans' state passing: s_{c+1} = decay_c s_c + inc_c from
+    s_0 = s0 (B, ...), over decay and inc (B, n, ...).  Returns the state
+    entering each chunk (B, n, ...) and the final state."""
+    starts, s = [], s0
+    for c in range(inc.shape[1]):
+        starts.append(s)
+        s = s * decay[:, c] + inc[:, c]
+    return torch.stack(starts, dim=1), s
+
+
+def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                      dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor, *,
+                      chunk: int = 128,
+                      init_state: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, the reference's `mamba2_chunk_scan`.
+    xh: (B,S,nh,hd), Bm/Cm: (B,S,ds), dt: (B,S,nh) f32, A, D: (nh,).
+
+    The reference's chunks, padding (dt = 0 past S), intra-chunk G,
+    inter-chunk term and state update, with one change of form: the
+    log-decay of a pair, sum_{t<s<=q} dt_s A, is summed pair by pair (a
+    segment sum) instead of taken as the difference cs_q - cs_t of the
+    chunk's cumulative sum.  At zamba2's A (down to -16) that sum reaches
+    ~-3000 within a chunk, where the difference keeps ~4 fewer digits:
+    the reference's form leaves dt's and A's gradients ~1e-5-1e-4 of
+    their max from float64, this one ~3e-7 (ROADMAP C12).  Every chunk's
+    products are taken at once; only the state (B,nh,hd,ds) is carried
+    chunk to chunk (`_carry`).  Returns (y (B,S,nh,hd), final_state
+    (B,nh,hd,ds)), f32, y including D x.
+    """
+    B, S, nh, hd = xh.shape
+    ds = Bm.shape[-1]
+    Lc = min(chunk, S)
+    xh_c, B_c, C_c, dt_c = (_blocks(a, Lc) for a in (xh, Bm, Cm, dt))
+    xt = xh_c * dt_c[..., None]                    # x-tilde, 0 past S
+    lA = dt_c * A                                  # (B,n,Lc,nh) <= 0
+    ones = torch.ones(Lc, Lc, dtype=torch.bool, device=xh.device)
+    tri, past = ones.tril()[:, :, None], ones.tril(-1)[:, :, None]
+    # seg[q, t] = sum_{t<s<=q} lA_s for q >= t, 0 above the diagonal (so
+    # exp never meets the large positive values a where() after it would
+    # back-propagate as inf * 0 = NaN)
+    seg = torch.cumsum(torch.where(past, lA[:, :, :, None], 0.0), dim=2)
+    G = torch.where(tri, torch.exp(seg), 0.0)      # weight(t -> q)
+    att = torch.einsum("bcqs,bcts->bcqt", C_c, B_c)
+    y = torch.einsum("bcqtn,bctnp->bcqnp", att[..., None] * G, xt)
+    # chunk c's own contribution to the state it hands on: t decays by
+    # exp(seg[last, t])
+    inc = torch.einsum("bctnp,bcts->bcnps",
+                       xt * torch.exp(seg[:, :, -1])[..., None], B_c)
+    cs = lA[:, :, :1] + seg[:, :, :, 0]            # inclusive, (B,n,Lc,nh)
+    s0 = (init_state.float() if init_state is not None else
+          xh.new_zeros(B, nh, hd, ds, dtype=torch.float32))
+    starts, state = _carry(s0, torch.exp(cs[:, :, -1])[..., None, None],
+                           inc)
+    # inter-chunk: y_q += exp(cs_q) C_q . state entering the chunk
+    y = y + torch.einsum("bcqs,bcnps->bcqnp", C_c, starts) \
+        * torch.exp(cs)[..., None]
+    y = y.reshape(B, -1, nh, hd)[:, :S]
+    return y + xh * D[None, None, :, None], state
+
+
 def mamba2_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
                 impl: Optional[str] = None,
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence Mamba2 block; the scan goes through `ops.ssd_scan`
-    on xt = x dt and lA = dt A, and y gains D x as in the reference's
+    """Full-sequence Mamba2 block.  mode="train" takes
+    `mamba2_chunk_scan`; mode="prefill" takes `ops.ssd_scan` (`impl`
+    picks its version) on xt = x dt and lA = dt A, y gaining D x as in the
     chunk scan."""
     B, S, _ = x.shape
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     z, xh, Bm, Cm, dt, A, conv_state = _mamba_inner(cfg, params, h)
-    y, state = ops.ssd_scan(xh * dt[..., None], Bm, Cm, dt * A, impl=impl)
-    y = y + xh * params["D"][None, None, :, None]
+    if mode == "train":
+        y, state = mamba2_chunk_scan(xh, Bm, Cm, dt, A, params["D"])
+    else:
+        y, state = ops.ssd_scan(xh * dt[..., None], Bm, Cm, dt * A,
+                                impl=impl)
+        y = y + xh * params["D"][None, None, :, None]
     out = _mamba_out(params, cfg, x, z, y.reshape(B, S, cfg.d_inner))
     cache = {"conv": conv_state, "ssm": state} if mode == "prefill" else None
     return out, cache
@@ -205,15 +298,69 @@ def _channel_mix(params, cfg, x, prev=None):
     return x + out2.to(x.dtype), h2
 
 
+SUB_CHUNK = 16
+
+
+def wkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+                    init_state: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6 recurrence, the reference's `wkv6_chunk_scan` in the
+    form the module docstring gives: blocks of L = min(chunk, SUB_CHUNK,
+    S) tokens (w padded with 1.0 past S), each block's past pairs in the
+    factored form about its middle token m,
+
+      att[t, s] = sum_d r_t exp(cw_ex_t - cw_ex_m) . k_s exp(cw_ex_m - cw_s),
+
+    for s < t, with cw / cw_ex the inclusive / exclusive cumulative
+    log-decay inside the block, lw = log(max(w, 1e-12)).  Each exponent is
+    at most max(m, L - m) |lw| <= 8 |lw|: finite for w >= 2e-5.  Every
+    block's products are taken at once; only the state is carried block
+    to block (`_carry`).
+
+    r,k,v,w: (B,S,H,hd), u: (H,hd).  Returns (out (B,S,H,hd), final_state
+    (B,H,hd,hd) [k-dim, v-dim]), f32.
+    """
+    B, S, H, hd = r.shape
+    L = min(chunk, SUB_CHUNK, S)
+    r_, k_, v_ = (_blocks(a.float(), L) for a in (r, k, v))
+    lw = torch.log(torch.clamp(_blocks(w.float(), L, fill=1.0), min=1e-12))
+    cw = torch.cumsum(lw, dim=2)                   # (B,n,L,H,hd) inclusive
+    cw_ex = cw - lw                                # exclusive: sum_{s<t}
+    mid = cw_ex[:, :, L // 2, None]
+    att = torch.einsum("bcthd,bcshd->bchts", r_ * torch.exp(cw_ex - mid),
+                       k_ * torch.exp(mid - cw))
+    past = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)
+    out = torch.einsum("bchts,bcshe->bcthe", torch.where(past, att, 0.0),
+                       v_)
+    # current-token bonus
+    out = out + torch.einsum("bcthd,bcthd->bcth", r_,
+                             u.float() * k_)[..., None] * v_
+    # the block's own contribution to the state it hands on
+    last = cw[:, :, -1]                            # (B,n,H,hd)
+    inc = torch.einsum("bcshd,bcshe->bchde",
+                       k_ * torch.exp(last[:, :, None] - cw), v_)
+    s0 = (init_state.float() if init_state is not None else
+          r_.new_zeros(B, H, hd, hd))
+    starts, state = _carry(s0, torch.exp(last)[..., None], inc)
+    # the state entering the block: out_t += (r_t exp(cw_ex_t)) . state
+    out = out + torch.einsum("bcthd,bchde->bcthe", r_ * torch.exp(cw_ex),
+                             starts)
+    return out.reshape(B, -1, H, hd)[:, :S], state
+
+
 def rwkv6_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
                impl: Optional[str] = None,
                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence RWKV6 block; the recurrence goes through
-    `ops.wkv_scan`."""
+    """Full-sequence RWKV6 block.  mode="train" takes `wkv6_chunk_scan`;
+    mode="prefill" takes `ops.wkv_scan` (`impl` picks its version)."""
     H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     h = rms_norm(x, params["norm_tm"], cfg.norm_eps)
     r, k, v, g, w = _time_mix_in(params, h, _shift(h), H, hd)
-    out, state = ops.wkv_scan(r, k, v, w, params["u"], impl=impl)
+    if mode == "train":
+        out, state = wkv6_chunk_scan(r, k, v, w, params["u"])
+    else:
+        out, state = ops.wkv_scan(r, k, v, w, params["u"], impl=impl)
     x = _time_mix_out(params, cfg, x, out, g)
     x, h2 = _channel_mix(params, cfg, x)
     cache = None

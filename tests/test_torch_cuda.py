@@ -41,8 +41,11 @@ the decode and the prefill phase, and two Table E cells drained by
 at rtol 1e-9) and the committed rows of benchmarks/results/fleet_grid.json.
 Training: each kernel wrapper raises on inputs that require grad where
 autograd records (it has no backward) and runs under no_grad and
-inference_mode; chip_smoke.py's 14a step (whisper-medium reduced, card
-against the CPU at tests/test_torch_training.py's tolerances); whisper's
+inference_mode; chip_smoke.py's 14a step (whisper-medium reduced) and 15a
+steps (zamba2 and rwkv6 reduced, through the chunk scans, launching no
+kernel), card against the CPU at tests/test_torch_training.py's
+tolerances; the chunk scans at the SSMs' head widths, card against CPU,
+gradients included; whisper's
 reduced decode through flash_decode after a prefill with encoder frames,
 against the plain attention on the same cache.
 The SLO sizing loop under that drain: the hand-built FleetOpt fleet of the
@@ -96,8 +99,10 @@ from repro_torch.serving import run_fleet_grid
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
 import port_fleet_bench as PFB  # noqa: E402
-from chip_smoke import (LOGIT_REL_BOUND, fleet_parity,  # noqa: E402
-                        rel_rows, sizing_diffs, step_diffs, step_on)
+from chip_smoke import (CHUNK_SCANS, LOGIT_REL_BOUND,  # noqa: E402
+                        SSM_TRAIN_BATCH, TRAIN_BATCH, chunk_scan_case,
+                        chunk_scan_diffs, fleet_parity, rel_rows,
+                        scan_with_grads, sizing_diffs, step_diffs, step_on)
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -856,7 +861,7 @@ def test_kernel_wrappers_refuse_grad_on_card(gen, name):
     grad_args = tuple(a.requires_grad_() if a.is_floating_point() else a
                       for a in args)
     before = fn.launches
-    with pytest.raises(RuntimeError, match="A 5b"):
+    with pytest.raises(RuntimeError, match="chunk scans in models/ssm.py"):
         fn(*grad_args)
     assert fn.launches == before
     with torch.no_grad():
@@ -867,16 +872,47 @@ def test_kernel_wrappers_refuse_grad_on_card(gen, name):
         torch.testing.assert_close(c, a, atol=0, rtol=0)
 
 
-def test_train_step_card_matches_cpu(gen):
-    """chip_smoke.py's 14a on whisper-medium reduced (float32)."""
+@pytest.mark.parametrize("arch", ["whisper-medium", "zamba2-2.7b",
+                                  "rwkv6-1.6b"])
+def test_train_step_card_matches_cpu(gen, arch):
+    """chip_smoke.py's 14a on whisper-medium and its 15a on the SSMs
+    (reduced, float32, the SSMs at 2 x 160 tokens): the card's train step
+    within the CPU tests' bounds of the CPU's, launching no kernel."""
     from repro_torch.data import batch_iterator
     from repro_torch.training.optimizer import tree_map
-    cfg = get_config("whisper-medium").reduced()
-    batch = next(batch_iterator(cfg, batch=2, seq=24))
+    cfg = get_config(arch).reduced()
+    batch = next(batch_iterator(cfg, **(TRAIN_BATCH if arch.startswith(
+        "whisper") else SSM_TRAIN_BATCH)))
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     cpu = step_on(cfg, tree_map(torch.clone, params), batch, "cpu")
+    before = (mamba_scan.launches, wkv6.launches, flash_decode.launches)
     card = step_on(cfg, tree_map(lambda t: t.cuda(), params), batch, "cuda")
     assert max(step_diffs(cpu, card)) <= 1
+    assert (mamba_scan.launches, wkv6.launches,
+            flash_decode.launches) == before
+
+
+@pytest.mark.parametrize("kind,w_range", [("mamba2", None),
+                                          ("wkv6", (0.05, 1.0)),
+                                          ("wkv6", (0.05, 0.06))])
+def test_chunk_scans_card_matches_cpu(gen, kind, w_range):
+    """The chunk scans training takes (models/ssm.py) at the models' head
+    widths, B 2, S 300 (three Mamba chunks with a ragged last one,
+    nineteen 16-token WKV blocks): y, the final state and every input's
+    gradient on the card against the same scan on the CPU, at chip_smoke's
+    15b limits."""
+    shape = {"mamba2": (2, 300, 80, 64, 64), "wkv6": (2, 300, 32, 64)}[kind]
+    args = chunk_scan_case(kind, shape, gen, w_range)
+    cot = [torch.randn(shape[:4], generator=gen, device="cuda"),
+           torch.randn(shape[0], shape[2], shape[3], shape[-1],
+                       generator=gen, device="cuda")]
+    card = scan_with_grads(CHUNK_SCANS[kind], args, cot)
+    cpu = scan_with_grads(CHUNK_SCANS[kind], [a.cpu() for a in args],
+                          [c.cpu() for c in cot])
+    out, grad, finite = chunk_scan_diffs(
+        kind, [card[0].cpu(), card[1].cpu(), [g.cpu() for g in card[2]]],
+        cpu)
+    assert out <= 1 and grad <= 1 and finite
 
 
 def test_whisper_decode_through_kernel_on_card(gen):

@@ -8,9 +8,12 @@ for both.  Configs are `.reduced()` and in float32.  Tolerances:
   * LOSS_ATOL = 1e-5 on the loss and the MoE aux loss (f32 sums over a few
     thousand logits taken in other orders: the observed gap is <= 1.5e-6);
   * GRAD_REL = 1e-4: every gradient leaf within 1e-4 x that leaf's
-    max|g_ref| (observed: <= 4e-6 for the attention and MoE archs, 3.4e-5
-    for zamba2's A_log, whose gradient sums a 24-step scan the reference
-    takes in chunks and the port's plain scan step by step);
+    max|g_ref| (observed: <= 4e-6 for the attention, MoE and RWKV6 archs,
+    3.2e-5 for zamba2's A_log; it was 3.4e-5 when the port trained
+    through its sequential plain scan: the gap is the reference's own
+    rounding, whose chunk scan takes each pair's log-decay as a difference
+    of the chunk's cumulative sum (ROADMAP C12), where the port's segment
+    sum keeps the scan's gradients within ~1e-6 of float64);
   * the AdamW update on identical gradients: OPT_RTOL = 1e-6 relative and
     OPT_ATOL = 1e-7 absolute on parameters and moments (float32, one
     rounding order);
@@ -22,9 +25,11 @@ for both.  Configs are `.reduced()` and in float32.  Tolerances:
     yi-6b's w_down, 1.2e-6 apart);
   * batches, checkpoints and converted leaves: bit for bit.
 
-SSM archs take the plain (differentiable) scans on the CPU; on the card
-their kernels refuse to record a backward (ROADMAP A 5b), which
-`test_kernel_wrappers_refuse_grad` holds here on CPU tensors.
+SSM archs train through the chunk scans of `models/ssm.py` (the
+reference's algorithm) on every device; the scan kernels serve prefill
+only and refuse to record a backward they do not have, which
+`test_kernel_wrappers_refuse_grad` holds here on CPU tensors.  The chunk
+scans themselves are held in tests/test_torch_chunk_scan.py.
 """
 import dataclasses
 import functools
@@ -49,10 +54,12 @@ from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import flash_decode_int8 as FD8
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.kernels import wkv6 as WK
 from repro_torch.launch import train as launch_train
 from repro_torch.models import model as M
 from repro_torch.models import moe
+from repro_torch.models import ssm
 from repro_torch.models.convert import (convert_params, flatten_paths,
                                         to_reference_layout, unflatten_paths)
 from repro_torch.training.optimizer import tree_leaves, tree_map
@@ -354,7 +361,8 @@ def _set_path(params, ref_path, value):
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m",
-                                  "whisper-medium"])
+                                  "whisper-medium", "zamba2-2.7b",
+                                  "rwkv6-1.6b"])
 def test_train_step_matches_reference(arch):
     jcfg, cfg = _configs(arch)
     opt_kw = dict(lr=1e-3, total_steps=10)
@@ -445,7 +453,9 @@ def test_checkpoint_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("arch,dtype", [("yi-6b", "float32"),
                                         ("granite-moe-1b-a400m", "bfloat16"),
-                                        ("whisper-medium", "bfloat16")])
+                                        ("whisper-medium", "bfloat16"),
+                                        ("zamba2-2.7b", "bfloat16"),
+                                        ("rwkv6-1.6b", "float32")])
 def test_checkpoints_cross_both_ways(tmp_path, arch, dtype):
     jcfg, cfg = _configs(arch, dtype=dtype)
     jparams = JM.init_params(jax.random.PRNGKey(4), jcfg)
@@ -573,11 +583,11 @@ def test_ops_backpropagate_through_plain_versions_on_cpu(name):
                                   "ssd_scan", "wkv_scan"])
 def test_kernel_wrappers_refuse_grad(name):
     """The wrapper itself raises before it would launch: with grad enabled
-    and an input that requires grad, RuntimeError naming ROADMAP A 5b;
-    under no_grad it goes on to its device check (ValueError off the
-    card)."""
+    and an input that requires grad, RuntimeError pointing at the training
+    path, `forward(mode="train")`; under no_grad it goes on to its device
+    check (ValueError off the card)."""
     _, wrapper, args = _kernel_inputs(grad=True)[name]
-    with pytest.raises(RuntimeError, match="A 5b"):
+    with pytest.raises(RuntimeError, match="chunk scans in models/ssm.py"):
         wrapper(*args)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         wrapper(*args)
@@ -589,13 +599,67 @@ def test_kernel_wrappers_refuse_grad(name):
 
 
 def test_ssm_trains_on_cpu_through_plain_scans():
-    """zamba2 reduced: a whole train step on the CPU (the plain scans are
-    differentiable) gives finite, nonzero gradients to the scan's inputs."""
+    """zamba2 reduced: the gradients of a train step through the sequential
+    plain scans (`kernels.ref`, swapped in for the chunk scans) equal those
+    through the chunk scans within GRAD_REL of each leaf's max|g|, and the
+    scan's inputs get finite, nonzero gradients."""
     _, cfg = _configs("zamba2-2.7b")
     params = _port_params("zamba2-2.7b")
-    _, grads = loss_and_grads(params, cfg, batch_to(_batch(cfg), "cpu"))
-    g = grads["layers"][0]["b0_mamba2"]
+    b = batch_to(_batch(cfg), "cpu")
+    _, grads = loss_and_grads(params, cfg, b)
+
+    def plain(xh, Bm, Cm, dt, A, D):
+        y, state = mamba_scan_ref(xh * dt[..., None], Bm, Cm, dt * A)
+        return y + xh * D[None, None, :, None], state
+
+    real = ssm.mamba2_chunk_scan
+    ssm.mamba2_chunk_scan = plain
+    try:
+        _, pgrads = loss_and_grads(params, cfg, b)
+    finally:
+        ssm.mamba2_chunk_scan = real
+    g = pgrads["layers"][0]["b0_mamba2"]
     for leaf in ("A_log", "w_in", "dt_bias"):
+        assert bool(torch.isfinite(g[leaf]).all())
+        assert float(g[leaf].abs().max()) > 0
+    _assert_grads(_flat_grads(grads, params), _flat_grads(pgrads, params))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_ssm_trains_on_cpu_through_chunk_scans(arch):
+    """Both SSMs reduced: a train step on the CPU goes through the chunk
+    scans (each called once per block, never the ops scans) and gives the
+    scans' inputs finite, nonzero gradients."""
+    _, cfg = _configs(arch)
+    params = _port_params(arch)
+    kind, scan = {"zamba2-2.7b": ("mamba2", "mamba2_chunk_scan"),
+                  "rwkv6-1.6b": ("rwkv6", "wkv6_chunk_scan")}[arch]
+    calls = []
+    real = getattr(ssm, scan)
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    def refused(*args, **kw):
+        raise AssertionError("a train step reached kernels.ops")
+
+    saved = {n: getattr(ops, n) for n in ("ssd_scan", "wkv_scan")}
+    setattr(ssm, scan, counted)
+    for n in saved:
+        setattr(ops, n, refused)
+    try:
+        _, grads = loss_and_grads(params, cfg, batch_to(_batch(cfg), "cpu"))
+    finally:
+        setattr(ssm, scan, real)
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    assert len(calls) == sum(blk.kind == kind for blk in cfg.unit) \
+        * cfg.n_repeat
+    g = grads["layers"][0][f"b0_{kind}"]
+    leaves = ("A_log", "w_in", "dt_bias") if kind == "mamba2" else \
+        ("w0", "wA", "wB", "u", "Wk", "Wr")
+    for leaf in leaves:
         assert bool(torch.isfinite(g[leaf]).all())
         assert float(g[leaf].abs().max()) > 0
     assert not math.isnan(float(sum(t.sum() for t in tree_leaves(grads)
