@@ -283,6 +283,29 @@ Phases, in order; any failure exits non-zero:
               >= 1 nat below the first, the checkpoint reloaded bit-equal
               with `to_reference_layout`'s keys;
               then phase 15's walls beside the card's name and power limit;
+  16. distribution  the distribution layer (launch/{mesh,sharding,
+              dryrun}.py, the model's `constrain` sites, DTensor arguments
+              of kernels/ops.py):
+              16a on the card's host, DIST_PAIRS (one pair per rule of
+              tests/launch/test_sharding_rules.py, full size, 16 x 16 and
+              one at 2 x 16 x 16) traced by `dryrun.run_pair` on the fake
+              production mesh, DIST_WORKERS processes at once: each `ok`,
+              its traced argument bytes equal to the rules'
+              (`dryrun.argument_bytes`); per pair the trace wall,
+              arguments and peak GiB per device, fits_h100, the roofline
+              terms and collective bytes by kind; a planted fault (DIST_FAULT:
+              `model` on a dimension it does not divide) must raise in
+              `sharding.distribute`;
+              16b on the card, a (1, 1) ("data", "model") mesh over an NCCL
+              group of one rank (a FileStore under build/): llama31-8b and
+              granite-moe-1b-a400m decode one step at the short pool's
+              16 x 256 and zamba2-2.7b prefills a DIST_PROMPT-token prompt,
+              at full width and depth, once on plain tensors and once on
+              DTensors placed by `param_specs(mode="serve")` /
+              `cache_specs`: logits, caches and states bit-equal, the same
+              flash_decode / mamba_scan launches in each (counts set to 0
+              before each step, read after), twice (cold, warm), the walls
+              printed side by side (DTensor's host cost);
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -303,12 +326,13 @@ import dataclasses
 import functools
 import json
 import math
+import multiprocessing
 import subprocess
 import sys
 import time
 import types
 from collections import Counter
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -334,8 +358,16 @@ from repro_torch.core.slo import SLOSpec, size_to_slo_spec  # noqa: E402
 from repro_torch.core.topospec import TopologySpec  # noqa: E402
 from repro_torch.core.workloads import WORKLOADS  # noqa: E402
 from repro_torch.data import batch_iterator  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
+                                     make_production_mesh)
+from repro_torch.launch.shapes import SHAPES  # noqa: E402
+from repro_torch.launch.sharding import (batch_specs,  # noqa: E402
+                                         cache_specs, distribute,
+                                         param_specs)
+from repro_torch.models.common import set_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.attention import encode_cross_kv  # noqa: E402
@@ -546,6 +578,35 @@ SSM_TRAIN = MOE_TRAIN
 # 15d: the launcher at the reference's "10m" preset, 14b's other arguments
 SSM_DEMO_ARGS = ["--preset", "10m", "--steps", "100", "--batch", "8",
                  "--seq", "128", "--lr", "2e-3"]
+# phase 16: the dry run's pairs on the host (16a), each with the rule of
+# tests/launch/test_sharding_rules.py it exercises, and the card's steps
+# on a (1, 1) mesh (16b)
+DIST_PAIRS = [
+    ("yi-6b", "decode_32k", False,
+     "KV sequence-sharded on model (4 KV heads < 16)"),
+    ("zamba2-2.7b", "decode_32k", False, "KV heads on model (32 KV heads)"),
+    ("zamba2-2.7b", "long_500k", False,
+     "batch 1: hybrid SSM states and KV unsharded by batch"),
+    ("h2o-danube-3-4b", "long_500k", False,
+     "context parallel: KV sequence on data+model"),
+    ("granite-moe-1b-a400m", "train_4k", False,
+     "pure DP: batch over data+model, 256 dispatch groups, experts"
+     " replicated"),
+    ("grok-1-314b", "decode_32k", False,
+     "serve keeps FSDP (314 B params), TP inside its 8 experts"),
+    ("llava-next-34b", "prefill_32k", False,
+     "serve drops FSDP (34 B), 2880-patch prefix"),
+    ("whisper-medium", "decode_32k", False,
+     "encoder-decoder: cross-attention cache, KV heads on model"),
+    ("llama31-70b", "train_4k", False,
+     "FSDP + TP, sequence-parallel residual (> 3e10 params)"),
+    ("whisper-medium", "decode_32k", True,
+     "the 2 x 16 x 16 mesh: batch over pod+data"),
+]
+DIST_WORKERS = 4                        # host processes tracing 16a's pairs
+DIST_FAULT = ((1000, 64), ("model", None))   # 1000 % 16 != 0
+DIST_DECODE = ("llama31-8b", MOE_ARCH)  # one decode step each, 16 x 256
+DIST_PROMPT = 1015                      # zamba2's prefill, as phase 7's
 
 
 def log(msg: str) -> None:
@@ -3247,6 +3308,178 @@ def phase_ssm_train():
             f"{tag} {w * 1e3:.1f} ms" for tag, w in scan_walls.items()))
 
 
+# ---- phase 16: distribution ------------------------------------------------
+
+def phase_dist_host():
+    """16a: DIST_PAIRS traced by the dry run on the fake production mesh,
+    DIST_WORKERS processes at once; each pair ok and its traced arguments
+    the rules' bytes; then the planted fault must raise in `distribute`."""
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(DIST_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as ex:
+        futures = [ex.submit(DRY.run_pair, a, s, multi_pod=mp, save=True,
+                             out_dir=out_dir)
+                   for a, s, mp, _ in DIST_PAIRS]
+        results = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    for (arch, shape, mp, rule), r in zip(DIST_PAIRS, results):
+        if r["status"] != "ok":
+            log(r.get("traceback", ""))
+            raise SystemExit(f"16a: {arch} {shape} {r['mesh']}:"
+                             f" {r['status']} {r.get('error', '')}")
+        stub = types.SimpleNamespace(
+            shape=dict(zip(*reversed(DRY.MULTI_POD if mp else DRY.POD))),
+            axis_names=(DRY.MULTI_POD if mp else DRY.POD)[1])
+        want = DRY.argument_bytes(get_config(arch), SHAPES[shape], stub)
+        b, rf = r["bytes_per_device"], r["roofline"]
+        coll = {k: v for k, v in r["collectives"].items() if v}
+        log(f"  16a {arch} {shape} {r['mesh']} ({rule}): {r['status']},"
+            f" trace {r['trace_s']} s, arguments {b['arguments'] / 2**30:.3f}"
+            f" GiB/device (rules: {want}), peak {b['peak'] / 2**30:.2f} GiB,"
+            f" fits_h100 {r['fits_h100']}, dominant {rf['dominant']}"
+            f" (compute {rf['compute_s'] * 1e3:.1f} / memory"
+            f" {rf['memory_s'] * 1e3:.1f} / collective"
+            f" {rf['collective_s'] * 1e3:.1f} ms), collective bytes {coll}")
+        if b["arguments"] != want:
+            raise SystemExit(f"16a: {arch} {shape}: traced arguments"
+                             f" {b['arguments']} != the rules' {want}")
+    shape, spec = DIST_FAULT
+    with make_production_mesh() as mesh, \
+            torch._subclasses.fake_tensor.FakeTensorMode():
+        try:
+            distribute(torch.empty(shape, device="meta"), spec, mesh)
+        except ValueError as e:
+            log(f"  16a planted fault {shape} under {spec}: raised ({e})")
+        else:
+            raise SystemExit("16a: the planted fault (model on a"
+                             " non-dividing dimension) did not raise")
+    log(f"  16a {len(DIST_PAIRS)} pairs in {wall:.1f} s of host wall on"
+        f" {DIST_WORKERS} processes")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, counts_now()
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _bit_equal(a, b):
+    """Leaf by leaf: `a` (DTensors gathered) bit-equal to `b`."""
+    if isinstance(a, dict):
+        return all(_bit_equal(a[k], b[k]) for k in b) and set(a) == set(b)
+    return torch.equal(_full(a), b)
+
+
+def dist_decode(name, mesh):
+    """16b: one decode step of `name` at full width on the short pool's
+    shape, on plain tensors and on DTensors placed by the serve rules;
+    logits and the new cache bit-equal, the same flash_decode launches."""
+    cfg, params = load_model(name)
+    B, T = SHORT_POOL["n_slots"], SHORT_POOL["window"]
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    cache = M.init_cache(cfg, B, T, device=DEVICE)
+    for blk in cache.values():
+        for t in blk.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=DEVICE))
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=DEVICE)
+    pos = np.random.default_rng(16).integers(1, T, B)
+    dparams = distribute(params, param_specs(cfg, params, mesh,
+                                             mode="serve"), mesh)
+    dtok = distribute(tokens, batch_specs(mesh, B) + (None,), mesh)
+    rows = []
+    with torch.no_grad():
+        for _ in range(2):          # cold, then warm
+            (want, wcache), plain_ms, plain_n = _timed(
+                lambda: M.decode_step(params, cfg, tokens,
+                                      clone_cache(cache), pos))
+            dcache = distribute(clone_cache(cache), cache_specs(
+                cfg, cache, mesh, batch=B), mesh)
+            with set_mesh(mesh):
+                (got, gcache), dt_ms, dt_n = _timed(
+                    lambda: M.decode_step(dparams, cfg, dtok, dcache, pos))
+            rows.append((plain_ms, dt_ms))
+            equal = _bit_equal(got, want) and _bit_equal(gcache, wcache)
+            if not equal or plain_n != dt_n \
+                    or dt_n["flash_decode"] != cfg.attn_block_count:
+                raise SystemExit(f"16b: {name}'s decode step on DTensors"
+                                 f" bit-equal {equal}, launches {dt_n}"
+                                 f" vs plain {plain_n}")
+    log(f"  16b {name} decode {B} x {T}: logits and cache bit-equal, launches"
+        f" {dt_n} in each; wall plain / DTensor cold {rows[0][0]:.1f} /"
+        f" {rows[0][1]:.1f} ms, warm {rows[1][0]:.1f} / {rows[1][1]:.1f} ms")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return rows[1]
+
+
+def dist_prefill(mesh):
+    """16b: zamba2-2.7b prefills a DIST_PROMPT-token prompt on plain
+    tensors and on DTensors; logits and states bit-equal, mamba_scan
+    launched once a Mamba2 block in each."""
+    name = "zamba2-2.7b"
+    cfg, params = load_model(name)
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (1, DIST_PROMPT), generator=g,
+                           device=DEVICE)
+    dparams = distribute(params, param_specs(cfg, params, mesh,
+                                             mode="serve"), mesh)
+    dtok = distribute(tokens, batch_specs(mesh, 1) + (None,), mesh)
+    rows = []
+    with torch.no_grad():
+        for _ in range(2):
+            (want, wcache), plain_ms, plain_n = _timed(
+                lambda: M.forward(params, cfg, tokens, mode="prefill"))
+            with set_mesh(mesh):
+                (got, gcache), dt_ms, dt_n = _timed(
+                    lambda: M.forward(dparams, cfg, dtok, mode="prefill"))
+            rows.append((plain_ms, dt_ms))
+            equal = _bit_equal(got, want) and _bit_equal(gcache, wcache)
+            if not equal or plain_n != dt_n \
+                    or dt_n["mamba_scan"] != scan_blocks(cfg):
+                raise SystemExit(f"16b: {name}'s prefill on DTensors"
+                                 f" bit-equal {equal}, launches {dt_n} vs"
+                                 f" plain {plain_n}")
+    log(f"  16b {name} prefill of {DIST_PROMPT} tokens: logits and states"
+        f" bit-equal, launches {dt_n} in each; wall plain / DTensor cold"
+        f" {rows[0][0]:.1f} / {rows[0][1]:.1f} ms, warm {rows[1][0]:.1f} /"
+        f" {rows[1][1]:.1f} ms")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return rows[1]
+
+
+def phase_dist():
+    """Phase 16: 16a on the host, then 16b on the card over an NCCL group
+    of one rank (a FileStore under build/)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    phase_dist_host()
+    t16a = time.perf_counter() - t0
+    store = ROOT / "build" / "chip_smoke" / "pg_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            world_size=1, rank=0,
+                            device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_local_mesh(model=1, data=1, device=DEVICE)
+        walls = {f"{n} decode": dist_decode(n, mesh) for n in DIST_DECODE}
+        walls["zamba2-2.7b prefill"] = dist_prefill(mesh)
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 16 on {PFB.card_line()}: 16a {t16a:.1f} s; warm wall"
+        " plain / DTensor " + ", ".join(
+            f"{k} {a:.1f} / {b:.1f} ms" for k, (a, b) in walls.items()))
+
+
 def load_model(name):
     cfg = get_config(name)
     t0 = time.perf_counter()
@@ -3380,6 +3613,11 @@ def main() -> int:
     t15 = time.perf_counter()
     phase_ssm_train()
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    log("[16] distribution: the dry run's pairs on the fake production"
+        " mesh, DTensor steps on a (1, 1) mesh on the card")
+    t16 = time.perf_counter()
+    phase_dist()
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from ..models.common import replicated_like
+
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
@@ -27,7 +29,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // K
     qh = q.reshape(B, K, G, D).float()
     s = torch.einsum("bkgd,btkd->bkgt", qh, k.float()) / math.sqrt(D)
-    valid = torch.arange(T, device=q.device)[None] < lengths[:, None]
+    t = replicated_like(torch.arange(T, device=q.device), q)
+    valid = t[None] < lengths[:, None]
     s = s.masked_fill(~valid[:, None, None], -1e30)
     p = torch.softmax(s, dim=-1)
     p = p * valid.any(-1)[:, None, None, None]
@@ -62,8 +65,8 @@ def mamba_scan_ref(xt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     B, S, nh, hd = xt.shape
     ds = Bm.shape[-1]
     state = (init_state.float().clone() if init_state is not None else
-             torch.zeros(B, nh, hd, ds, dtype=torch.float32,
-                         device=xt.device))
+             replicated_like(torch.zeros(B, nh, hd, ds, dtype=torch.float32,
+                                         device=xt.device), xt))
     xt, Bm, Cm, lA = xt.float(), Bm.float(), Cm.float(), lA.float()
     ys = []
     for t in range(S):
@@ -85,7 +88,8 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, S, H, hd = r.shape
     state = (init_state.float().clone() if init_state is not None else
-             torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device))
+             replicated_like(torch.zeros(B, H, hd, hd, dtype=torch.float32,
+                                         device=r.device), r))
     r, k, v, w, u = r.float(), k.float(), v.float(), w.float(), u.float()
     outs = []
     for t in range(S):

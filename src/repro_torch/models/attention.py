@@ -12,6 +12,7 @@ once per sequence, at training, prefill and every decode step alike.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -19,7 +20,9 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .common import apply_rope, dense_init, dot, dtype_of, rms_norm
+from .common import (_is_dtensor, apply_rope, constrain, dense_init, dot,
+                     dtype_of, heads_spec, on_shards, replicated_like,
+                     rms_norm, roll, shard_kinds, shard_range)
 
 NEG_INF = -1e30
 
@@ -46,6 +49,27 @@ def init_attention(generator: torch.Generator, cfg, device: torch.device,
     return p
 
 
+def _split_heads(t: torch.Tensor, n: int, hd: int,
+                 kv_heads: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  Under a mesh the projection's
+    columns are first placed whole KV groups to a shard: over `model`
+    where the `kv_heads` divide it, else replicated (DTensor cannot split
+    a sharded dimension whose shards straddle heads or GQA groups)."""
+    B, S = t.shape[:2]
+    t = constrain(t, "BATCH", None, heads_spec(kv_heads))
+    return t.reshape(B, S, n, hd)
+
+
+def _merge_heads(out: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd), placed as `_split_heads` places
+    the heads: the gradient that flows back into the reshape is then
+    placed so too (a shard of H * hd that straddles heads cannot be
+    viewed back as heads)."""
+    B, S = out.shape[:2]
+    return constrain(out.reshape(B, S, -1), "BATCH", None,
+                     heads_spec(kv_heads))
+
+
 def _qkv(params, cfg, x, *, rope_positions=None):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -54,9 +78,9 @@ def _qkv(params, cfg, x, *, rope_positions=None):
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    q = _split_heads(q, H, hd, K)
+    k = _split_heads(k, K, hd, K)
+    v = _split_heads(v, K, hd, K)
     if rope_positions is not None:
         q = apply_rope(q, rope_positions, cfg.rope_theta)
         k = apply_rope(k, rope_positions, cfg.rope_theta)
@@ -71,8 +95,21 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, D); k, v: (B, T, K, D) with H = K * G.  Query i sits at
     position i and key t at position t; `causal` keeps t <= i, and
     `window` > 0 further keeps t > i - window.  Returns (B, S, H, D) in
-    q.dtype.
+    q.dtype.  DTensors whose batch or heads alone are sharded are attended
+    on each rank's shards (`on_shards`: the work is local, and DTensor's
+    propagation of the einsums over batch and heads sharded at once
+    fails); others go through DTensor's propagation.
     """
+    fn = functools.partial(_direct_attention, causal=causal, window=window)
+    if _is_dtensor(q):
+        dims = ({"batch": 0, "heads": 2},) * 3
+        if shard_kinds((q, k, v), dims)[1] is None:
+            return on_shards("direct_attention", fn, (q, k, v), dims,
+                             dims[:1])
+    return fn(q, k, v)
+
+
+def _direct_attention(q, k, v, *, causal: bool, window: int):
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -86,7 +123,7 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= k_pos <= q_pos
         if window:
             mask &= k_pos > q_pos - window
-        s = s.masked_fill(~mask, NEG_INF)
+        s = s.masked_fill(~replicated_like(mask, s), NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
@@ -100,7 +137,7 @@ def attention_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
     pos = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, cfg, h, rope_positions=pos)
     out = direct_attention(q, k, v, window=cfg.swa_window)
-    y = out.reshape(B, S, -1) @ params["wo"]
+    y = _merge_heads(out, cfg.n_kv_heads) @ params["wo"]
     cache = None
     if mode == "prefill":
         if cfg.swa_window:
@@ -109,8 +146,8 @@ def attention_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
             W = min(cfg.swa_window, S)
             kw, vw = k[:, S - W:], v[:, S - W:]
             if S > W:
-                kw = torch.roll(kw, S % W, dims=1)
-                vw = torch.roll(vw, S % W, dims=1)
+                kw = roll(kw, S % W, 1)
+                vw = roll(vw, S % W, 1)
             cache = {"k": kw, "v": vw}
         else:
             cache = {"k": k, "v": v}
@@ -127,12 +164,16 @@ class DecodeIndex:
         reference's out-of-bounds `.at[].set` is dropped;
     lengths: (B,) int32 valid cache entries for the kernel, min(pos+1, T):
         the reference's `t <= pos` (`t <= min(pos, T-1)` on the SWA ring)
-        written as the kernel's `t < lengths`.
+        written as the kernel's `t < lengths`;
+    host_rows, host_slots: rows and slots as host arrays, from which a
+        DTensor cache's shard picks the writes it holds.
     """
     pos: torch.Tensor
     rows: torch.Tensor
     slots: torch.Tensor
     lengths: torch.Tensor
+    host_rows: Optional[np.ndarray] = None
+    host_slots: Optional[np.ndarray] = None
 
 
 def decode_index(cfg, pos, batch: int, cache_len: int,
@@ -148,7 +189,31 @@ def decode_index(cfg, pos, batch: int, cache_len: int,
         return torch.as_tensor(np.array(a), device=device)
 
     return DecodeIndex(pos=as_t(pos), rows=as_t(rows),
-                       slots=as_t(slot[rows]), lengths=as_t(lengths))
+                       slots=as_t(slot[rows]), lengths=as_t(lengths),
+                       host_rows=rows, host_slots=slot[rows])
+
+
+def write_kv(slab: torch.Tensor, idx: DecodeIndex,
+             new: torch.Tensor) -> None:
+    """slab[rows, slots] = new[rows, 0] in place: slab (B, T, K, D), new
+    (B, 1, K, D).  On a DTensor slab, each rank writes the rows and slots
+    its shard holds, from `new` placed as the slab but whole along T (one
+    token has no T to shard): a write moves one row, wherever the cache's
+    batch, sequence or heads lie."""
+    if not _is_dtensor(slab):
+        slab[idx.rows, idx.slots] = new[idx.rows, 0]
+        return
+    from torch.distributed.tensor import Replicate
+    new = new.redistribute(slab.device_mesh, tuple(
+        Replicate() if p.is_shard(1) else p for p in slab.placements))
+    local, new_local = slab.to_local(), new.to_local()
+    (b0, nb), (t0, nt) = shard_range(slab, 0), shard_range(slab, 1)
+    rows, slots = idx.host_rows, idx.host_slots
+    mine = (rows >= b0) & (rows < b0 + nb) & (slots >= t0) \
+        & (slots < t0 + nt)
+    r = torch.as_tensor(rows[mine] - b0, device=local.device)
+    t = torch.as_tensor(slots[mine] - t0, device=local.device)
+    local[r, t] = new_local[r, 0]
 
 
 def attention_decode(params, cfg, x: torch.Tensor, cache: dict,
@@ -165,11 +230,12 @@ def attention_decode(params, cfg, x: torch.Tensor, cache: dict,
     B = x.shape[0]
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     q, k_new, v_new = _qkv(params, cfg, h, rope_positions=idx.pos[:, None])
-    cache["k"][idx.rows, idx.slots] = k_new[idx.rows, 0]
-    cache["v"][idx.rows, idx.slots] = v_new[idx.rows, 0]
+    write_kv(cache["k"], idx, k_new)
+    write_kv(cache["v"], idx, v_new)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], idx.lengths,
                                impl=impl)
-    y = out.to(x.dtype).reshape(B, 1, -1) @ params["wo"]
+    y = _merge_heads(out.to(x.dtype).reshape(B, 1, *out.shape[1:]),
+                     cfg.n_kv_heads) @ params["wo"]
     return x + y
 
 
@@ -181,11 +247,11 @@ def encoder_attention(params, cfg, x: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    q = dot(h, params["wq"]).reshape(B, S, H, hd)
-    k = dot(h, params["wk"]).reshape(B, S, K, hd)
-    v = dot(h, params["wv"]).reshape(B, S, K, hd)
+    q = _split_heads(dot(h, params["wq"]), H, hd, K)
+    k = _split_heads(dot(h, params["wk"]), K, hd, K)
+    v = _split_heads(dot(h, params["wv"]), K, hd, K)
     out = direct_attention(q, k, v, causal=False)
-    return x + dot(out.reshape(B, S, -1), params["wo"])
+    return x + dot(_merge_heads(out, K), params["wo"])
 
 
 def cross_attention_full(params, cfg, x: torch.Tensor,
@@ -197,15 +263,14 @@ def cross_attention_full(params, cfg, x: torch.Tensor,
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    q = (h @ params["wq"]).reshape(B, S, H, hd)
+    q = _split_heads(h @ params["wq"], H, hd, cfg.n_kv_heads)
     out = direct_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return x + out.reshape(B, S, -1) @ params["wo"]
+    return x + _merge_heads(out, cfg.n_kv_heads) @ params["wo"]
 
 
 def encode_cross_kv(params, cfg, enc_out: torch.Tensor) -> dict:
     """Cross-attention K/V of the encoder output (B, F, d), which is not
     normalised again; no bk/bv.  Float32 for float32 frames."""
-    B, T, _ = enc_out.shape
     K, hd = cfg.n_kv_heads, cfg.hd
-    return {"k": dot(enc_out, params["wk"]).reshape(B, T, K, hd),
-            "v": dot(enc_out, params["wv"]).reshape(B, T, K, hd)}
+    return {"k": _split_heads(dot(enc_out, params["wk"]), K, hd, K),
+            "v": _split_heads(dot(enc_out, params["wv"]), K, hd, K)}

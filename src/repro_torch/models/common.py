@@ -1,7 +1,11 @@
-"""Shared numerics for the model zoo: norms, RoPE, init helpers."""
+"""Shared numerics for the model zoo: norms, RoPE, init helpers, and the
+ambient mesh of the distribution layer (`set_mesh`, `constrain`)."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import dataclasses
+import sys
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +56,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                             device=x.device)
     angles = positions.float()[..., None] * freqs        # (..., S, D/2)
     angles = angles[..., None, :]                        # head axis
-    cos, sin = torch.cos(angles), torch.sin(angles)
+    cos, sin = (replicated_like(a, x)
+                for a in (torch.cos(angles), torch.sin(angles)))
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -60,3 +65,347 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+# ----------------------------------------------------------------------
+# The ambient mesh (the reference's `compat.get_abstract_mesh` and its
+# module globals BATCH_AXES_OVERRIDE / SEQ_SHARD_RESIDUAL, as one context)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    mesh: Any
+    batch_axes_override: Optional[Tuple[str, ...]] = None
+    seq_shard_residual: bool = False
+
+
+_MESH_STACK: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh, *, batch_axes_override: Optional[Sequence[str]] = None,
+             seq_shard_residual: bool = False):
+    """Install `mesh` as the ambient mesh of `constrain` and `batch_axes`
+    for the body of the `with`.
+
+    `batch_axes_override` maps the batch over other axes (the launch
+    layer's pure-data-parallel mapping: ("pod", "data", "model"));
+    `seq_shard_residual` shards the residual stream's sequence dimension
+    over `model` between repeats (sequence parallelism for large-model
+    training).  The mesh is read only through `.shape` (a name -> size
+    mapping) and `.axis_names`, so a stub namespace serves for the rules
+    alone; `constrain` redistributes a DTensor over its own mesh.
+    """
+    override = tuple(batch_axes_override) \
+        if batch_axes_override is not None else None
+    _MESH_STACK.append(MeshContext(mesh, override, seq_shard_residual))
+    try:
+        yield mesh
+    finally:
+        _MESH_STACK.pop()
+
+
+def _context() -> Optional[MeshContext]:
+    return _MESH_STACK[-1] if _MESH_STACK else None
+
+
+def get_mesh():
+    """The ambient mesh, or None outside `set_mesh`."""
+    ctx = _context()
+    return ctx.mesh if ctx is not None else None
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh or of a stub with a `.shape`
+    mapping."""
+    names = tuple(mesh.axis_names) if hasattr(mesh, "axis_names") \
+        else tuple(mesh.mesh_dim_names)
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return {a: int(shape[a]) for a in names}
+    return dict(zip(names, (int(s) for s in shape)))
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.axis_names) if hasattr(mesh, "axis_names") \
+        else tuple(mesh.mesh_dim_names)
+
+
+def axis_size(name: str) -> int:
+    """Size of the ambient mesh's axis `name` (1 without a mesh or axis)."""
+    ctx = _context()
+    if ctx is None:
+        return 1
+    return mesh_shape(ctx.mesh).get(name, 1)
+
+
+def heads_spec(n_heads: int):
+    """The spec entry of a heads dimension: "model" where the heads divide
+    the model axis, else None (replicated heads)."""
+    return "model" if n_heads % axis_size("model") == 0 else None
+
+
+def seq_shard_residual() -> bool:
+    ctx = _context()
+    return bool(ctx and ctx.seq_shard_residual)
+
+
+def batch_axes() -> tuple:
+    """Data-parallel axes of the ambient mesh (empty tuple if no mesh)."""
+    ctx = _context()
+    if ctx is None:
+        return ()
+    names = axis_names(ctx.mesh)
+    if ctx.batch_axes_override is not None:
+        return tuple(a for a in ctx.batch_axes_override if a in names)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def expand_spec(spec: Sequence, ndim: int, mesh) -> Tuple:
+    """The reference's `constrain` rules on a spec: axis names absent from
+    the mesh are dropped, "BATCH" expands to `batch_axes()`, an axis
+    appears in at most one dimension (the first that names it), and the
+    spec is padded with None to `ndim` dimensions."""
+    names = set(axis_names(mesh))
+
+    def clean(a):
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            kept = tuple(s for s in a if s in names)
+            return kept or None
+        return a if a in names else None
+
+    expanded, used = [], set()
+    for a in spec:
+        e = (tuple(batch_axes()) or None) if a == "BATCH" else clean(a)
+        if isinstance(e, tuple):
+            e = tuple(s for s in e if s not in used) or None
+        elif e in used:
+            e = None
+        for s in (e if isinstance(e, tuple) else (e,) if e else ()):
+            used.add(s)
+        expanded.append(e)
+    return tuple(expanded) + (None,) * (ndim - len(expanded))
+
+
+def spec_placements(spec: Sequence, mesh) -> tuple:
+    """One DTensor placement per mesh dimension for a spec (a tuple over
+    tensor dimensions of an axis name, a tuple of names, or None):
+    Shard(dim) on every mesh dimension a tensor dimension names, else
+    Replicate().  A dimension on several axes is sharded over them in mesh
+    order, which is the reference's major-to-minor order when the names
+    are listed in mesh order, as every rule lists them."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    placements = [Replicate()] * len(names)
+    for dim, a in enumerate(spec):
+        axes = a if isinstance(a, tuple) else (a,) if a else ()
+        idx = [names.index(s) for s in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {tuple(spec)}: axes {axes} of dim {dim}"
+                             f" are not in the mesh's order {names}")
+        for i in idx:
+            placements[i] = Shard(dim)
+    return tuple(placements)
+
+
+def _is_dtensor(x) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")   # none made without
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def constrain(x, *spec, bind_grad: bool = True):
+    """Redistribute a DTensor to `spec` against the ambient mesh: the
+    reference's `with_sharding_constraint`; a no-op outside `set_mesh` and
+    on a plain tensor.
+
+    The spec follows `expand_spec`'s rules, and, as in JAX, binds the
+    gradient that flows back through it too (`bind_grad=False` leaves the
+    gradient to DTensor, which returns it in the input's placements).
+    Two rules are the port's own:
+    a dimension keeps the longest leading run of its axes whose sizes
+    divide it, the rest dropped (GSPMD pads an uneven constraint; DTensor
+    would too, which the port refuses everywhere,
+    `launch.sharding.distribute`), and an axis of size 1, which shards
+    nothing, is dropped (DTensor would refuse to reshape a dimension it
+    marks sharded).  The canonical use is pinning the residual stream to
+    batch sharding (constrain(x, "BATCH")).
+    """
+    mesh = get_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    dmesh = x.device_mesh
+    spec = expand_spec(spec, x.ndim, mesh)
+    sizes = mesh_shape(dmesh)
+    fitted = []
+    for dim, a in zip(x.shape, spec):
+        axes = tuple(s for s in (a if isinstance(a, tuple) else (a,) if a
+                                 else ()) if sizes[s] > 1)
+        while axes and dim % int(np.prod([sizes[s] for s in axes])):
+            axes = axes[:-1]
+        fitted.append(axes or None)
+    placements = spec_placements(fitted, dmesh)
+    if bind_grad and x.requires_grad and torch.is_grad_enabled():
+        return _Constrain.apply(x, placements)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(dmesh, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """A redistribution whose gradient is placed as its output, as the
+    transpose of a JAX sharding constraint constrains the cotangent
+    (DTensor's own `redistribute` sends the gradient back to the input's
+    placements instead, which leaves a reshape's gradient sharded where
+    its forward was not)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        if tuple(x.placements) == placements:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def replicated_like(t: torch.Tensor, x) -> torch.Tensor:
+    """`t`, a tensor the model makes itself (positions, masks, angles), as
+    a Replicate() DTensor on x's mesh where x is a DTensor, else as it is:
+    DTensor refuses to mix plain tensors with DTensors in one op."""
+    if not _is_dtensor(x) or _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, x.device_mesh,
+                              [Replicate()] * x.device_mesh.ndim,
+                              run_check=False)
+
+
+def shard_range(x, dim: int) -> Tuple[int, int]:
+    """(offset, size) along `dim` of this rank's shard of a DTensor x, its
+    shards even (`launch.sharding.distribute` makes no other)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    size, offset = x.shape[dim], 0
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n = mesh.size(i)
+            if size % n:
+                raise ValueError(f"dimension {dim} of {tuple(x.shape)} is"
+                                 f" unevenly sharded")
+            size //= n
+            offset += coord[i] * size
+    return offset, size
+
+
+def shard_kinds(args: Sequence, dims: Sequence):
+    """How DTensor `args` are sharded, for a computation that is local
+    only over some of their dimensions.  dims[i] names argument i's
+    shardable dimensions by kind, e.g. {"batch": d, "heads": d} (a kind it
+    lacks is absent).  Returns (kinds, None), one kind or None
+    (replicated) per mesh dimension, where every mesh dimension shards the
+    arguments by one kind at most (an argument replicated there can be cut
+    to its shard); else (None, the reason).  A mesh dimension of one rank
+    shards nothing."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = args[0].device_mesh
+    kinds = []
+    for m in range(mesh.ndim):
+        seen = set()
+        if mesh.size(m) == 1:       # one shard: every dimension is whole
+            kinds.append(None)
+            continue
+        for a, d in zip(args, dims):
+            p = a.placements[m]
+            if isinstance(p, Replicate):
+                continue
+            kind = next((k for k, dim in d.items()
+                         if isinstance(p, Shard) and p.dim == dim), None)
+            if kind is None:
+                return None, (f"placement {p} of an argument of shape"
+                              f" {tuple(a.shape)} on mesh dimension {m}")
+            seen.add(kind)
+        if len(seen) > 1:
+            return None, (f"mesh dimension {m} shards the arguments by"
+                          f" {sorted(seen)} at once")
+        kinds.append(seen.pop() if seen else None)
+    return kinds, None
+
+
+def on_shards(name: str, fn, args: Sequence, dims: Sequence,
+              out_dims: Sequence):
+    """fn on the local shards of DTensor `args` (`local_map`), its outputs
+    DTensors placed by `out_dims` (as dims, per output).  Arguments
+    replicated where others are sharded are cut to their shard (a local
+    slice).  Raises NotImplementedError where `shard_kinds` finds the
+    work not local: a shard of a dimension the computation reduces over
+    needs a cross-rank merge."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    kinds, reason = shard_kinds(args, dims)
+    if reason:
+        raise NotImplementedError(
+            f"{name}: {reason}; it runs on local shards only where batch or"
+            f" heads (or width) are sharded and the dimension it reduces over"
+            f" is whole (a sharded sequence needs a cross-rank merge)")
+    mesh = args[0].device_mesh
+
+    def placements(d, keep=None):
+        # a mesh dimension of one rank keeps the argument's own placement
+        return tuple(Shard(d[k]) if k in d
+                     else keep[m] if keep and mesh.size(m) == 1
+                     else Replicate() for m, k in enumerate(kinds))
+
+    in_pl = [placements(d, a.placements) for a, d in zip(args, dims)]
+    args = [a if tuple(a.placements) == pl else a.redistribute(mesh, pl)
+            for a, pl in zip(args, in_pl)]
+    # an argument whole where others are sharded gets a gradient from each
+    # rank's shard: a partial sum
+    grad_pl = tuple(tuple(Partial() if k is not None and isinstance(
+        p, Replicate) else p for k, p in zip(kinds, pl)) for pl in in_pl)
+    out_pl = tuple(placements(d) for d in out_dims)
+    # local_map reads a tuple as one placement list per output
+    mapped = local_map(fn, out_placements=out_pl if len(out_pl) > 1
+                       else list(out_pl[0]), in_placements=tuple(in_pl),
+                       in_grad_placements=grad_pl, device_mesh=mesh)
+    return mapped(*args)
+
+
+def _along(name: str, fn, x, dims_used: Sequence[int]):
+    """fn(x) on each rank's shard of a DTensor x, which is first made
+    whole along `dims_used` (the dimensions fn moves data along); the
+    output is placed as x.  DTensor has no strategy for these ops in every
+    release (or a broken one over a 2-D mesh), and the work is local."""
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if p.is_shard() and p.dim in dims_used else p
+               for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    dims = {f"d{i}": i for i in range(x.ndim) if i not in dims_used}
+    return on_shards(name, fn, (x,), (dims,), (dims,))
+
+
+def pad(x: torch.Tensor, widths: Sequence[int],
+        value: float = 0.0) -> torch.Tensor:
+    """F.pad(x, widths, value=value); a DTensor is padded on its shards
+    (`_along`)."""
+    import torch.nn.functional as F
+    if not _is_dtensor(x):
+        return F.pad(x, widths, value=value)
+    padded = [x.ndim - 1 - i for i in range(len(widths) // 2)
+              if widths[2 * i] or widths[2 * i + 1]]
+    return _along("pad", lambda t: F.pad(t, widths, value=value), x, padded)
+
+
+def roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """torch.roll(x, shift, dims=dim); a DTensor is rolled on its shards
+    (`_along`)."""
+    if not _is_dtensor(x):
+        return torch.roll(x, shift, dims=dim)
+    dim %= x.ndim
+    return _along("roll", lambda t: torch.roll(t, shift, dims=dim), x, [dim])

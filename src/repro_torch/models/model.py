@@ -9,6 +9,13 @@ and, for an encoder-decoder (whisper), `encoder`: {"layers": a list of
 are stored (in, out) and used as `x @ W`, the reference's layout, so
 `convert.py` copies them as they are.
 
+Under an ambient mesh (`common.set_mesh`) parameters, cache and batch
+may be DTensors placed by `launch.sharding`: the reference's `constrain`
+sites pin the residual stream to batch sharding (sequence-sharded over
+`model` under `seq_shard_residual`) and the logits to vocab-parallel, and
+further sites place what DTensor's propagation cannot (PERF.md lists
+them).  On plain tensors every site is a no-op.
+
 Block kinds: attention, cross-attention, MLP, mixture-of-experts, Mamba2
 and RWKV6.  whisper's conv frontend and llava's vision tower are the
 reference's modality stubs: batches carry `frames` (B, F, d) for the
@@ -26,7 +33,9 @@ from .. import resolve_device
 from .attention import (attention_decode, attention_full,
                         cross_attention_full, decode_index, encode_cross_kv,
                         encoder_attention, init_attention)
-from .common import dense_init, dtype_of, rms_norm
+from .common import (_is_dtensor, constrain, dense_init, dtype_of,
+                     on_shards, replicated_like, rms_norm, seq_shard_residual,
+                     shard_kinds)
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
 from .spec import ArchConfig
@@ -107,8 +116,8 @@ def encoder_apply(params: Params, cfg: ArchConfig,
     batches, whatever the weights' dtype)."""
     x = frames
     for layer in params["encoder"]["layers"]:
-        x = encoder_attention(layer["b0_attn"], cfg, x)
-        x = apply_mlp(layer["b1_mlp"], cfg, x)
+        x = constrain(encoder_attention(layer["b0_attn"], cfg, x), "BATCH")
+        x = constrain(apply_mlp(layer["b1_mlp"], cfg, x), "BATCH")
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -116,20 +125,41 @@ def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings, with the patches (cast to the embedding dtype) in
     front where the config takes them."""
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.n_patches and patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, "BATCH")
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """embed[tokens].  DTensors look up on each rank's shards where the
+    tokens are sharded by batch and the table by width (its vocabulary is
+    whole under every rule): the gather is local, and DTensor's own
+    strategy refuses a batch sharded over two mesh axes."""
+    if _is_dtensor(tokens) and _is_dtensor(embed):
+        dims = ({"width": 1}, {"batch": 0})
+        if shard_kinds((embed, tokens), dims)[1] is None:
+            return on_shards("embedding", lambda e, t: e[t],
+                             (embed, tokens), dims,
+                             ({"batch": 0, "width": 2},))
+    return embed[tokens]
 
 
 def _repeat_full(params: Params, cfg: ArchConfig, r: int, x, aux, *,
-                 mode: str, enc_out, impl, with_aux: bool):
+                 mode: str, enc_out, impl, with_aux: bool,
+                 chunk_scans: bool = False):
     """One repeat of the unit over the full sequence: (x, aux, caches);
     the MoE blocks' aux loss is added to `aux` only `with_aux` (a serving
     prefill leaves it out, and with it its launches)."""
+    # keep the residual stream batch-sharded (+ sequence-sharded over the
+    # TP axis under sequence parallelism)
+    seq = "model" if seq_shard_residual() else None
+    x = constrain(x, "BATCH", seq)
     caches = {}
     for name, b, p in _blocks(params, cfg, r):
         c = None
+        # a block reads the whole sequence of its shard of the batch
+        x = constrain(x, "BATCH")
         if b.kind == "attn":
             x, c = attention_full(p, cfg, x, mode=mode)
         elif b.kind == "cross_attn":
@@ -144,7 +174,15 @@ def _repeat_full(params: Params, cfg: ArchConfig, r: int, x, aux, *,
         elif b.kind == "moe":
             x = apply_moe(p, cfg, x)
         else:
-            x, c = _FULL[b.kind](p, cfg, x, mode=mode, impl=impl)
+            x, c = _FULL[b.kind](p, cfg, x, mode=mode, impl=impl,
+                                 chunk_scans=chunk_scans)
+        # the residual out of a row-parallel product is a partial sum
+        # under a mesh: reduce it here (scatter it over the sequence
+        # under sequence parallelism).  Its gradient stays in the block
+        # output's placements: a sequence-sharded one would reach the
+        # block's products flattened over batch and sequence sharded at
+        # once, which DTensor cannot propagate
+        x = constrain(x, "BATCH", seq, bind_grad=False)
         if c is not None:
             caches[name] = c
     return x, aux, caches
@@ -154,7 +192,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             mode: str = "train", impl: Optional[str] = None,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None,
-            return_aux: bool = False, remat: bool = False):
+            return_aux: bool = False, remat: bool = False,
+            chunk_scans: bool = False):
     """Full-sequence pass over tokens (B, S), after `patches` (B, P, d)
     where the config takes them (the logits then cover P + S positions),
     with the encoder run over `frames` (B, F, d) where it has one.
@@ -175,7 +214,9 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     `models/ssm.py` on every device (differentiable, as the reference
     trains), "prefill" the scans of `kernels.ops`, whose version `impl`
     picks ("plain" runs the plain version on the card too); `impl` selects
-    nothing in mode "train".
+    nothing in mode "train".  `chunk_scans` makes a prefill take the chunk
+    scans too (the dry run's prefill, as the reference's prefill scans in
+    chunks: the plain sequential scan would step S times a block).
     """
     check_supported(cfg)
     if mode not in ("train", "prefill"):
@@ -186,12 +227,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             raise ValueError(f"{cfg.name} has an encoder: pass frames=")
         enc_out = encoder_apply(params, cfg, frames)
     x = embed_inputs(params, cfg, tokens, patches)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicated_like(torch.zeros((), dtype=torch.float32,
+                                      device=x.device), x)
     per_block: Dict[str, list] = {}
     for r in range(cfg.n_repeat):
         step = functools.partial(_repeat_full, params, cfg, r, mode=mode,
                                  enc_out=enc_out, impl=impl,
-                                 with_aux=return_aux)
+                                 with_aux=return_aux,
+                                 chunk_scans=chunk_scans)
         if remat:
             x, aux, caches = torch.utils.checkpoint.checkpoint(
                 step, x, aux, use_reentrant=False)
@@ -199,15 +242,29 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             x, aux, caches = step(x, aux)
         for name, c in caches.items():
             per_block.setdefault(name, []).append(c)
+    x = constrain(x, "BATCH")        # the head reads whole sequences
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         cache = {name: {key: torch.stack([c[key] for c in cs])
                         for key in cs[0]}
                  for name, cs in per_block.items()}
-        logits = x[:, -1:] @ _head(params, cfg)
+        logits = constrain(x[:, -1:] @ _head(params, cfg), "BATCH", None,
+                           "model")
         return (logits, cache, aux) if return_aux else (logits, cache)
-    logits = x @ _head(params, cfg)
+    logits = constrain(x @ _head(params, cfg), "BATCH", None, "model")
     return (logits, aux) if return_aux else logits
+
+
+def _target_logit(zs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """zs[b, s, t[b, s]] (t < 0 reads index 0).  On a DTensor whose vocab
+    may be sharded, the reference's vocab-parallel form: a masked sum over
+    the vocabulary, exact (every other term is 0), which DTensor reduces
+    across vocab shards as (B, S) partial sums; its gather strategy would
+    mask a partial it then fails to reduce."""
+    if not _is_dtensor(zs):
+        return zs.gather(-1, t.clamp(min=0)[..., None])[..., 0]
+    vidx = replicated_like(torch.arange(zs.shape[-1], device=zs.device), zs)
+    return torch.where(vidx == t.clamp(min=0)[..., None], zs, 0.0).sum(-1)
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -233,7 +290,8 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     cs = min(512, S)
     while S % cs:
         cs //= 2
-    nll_sum = torch.zeros((), dtype=torch.float32, device=txt.device)
+    nll_sum = replicated_like(torch.zeros((), dtype=torch.float32,
+                                          device=txt.device), txt)
     count = 0
     for i in range(0, S, cs):
         zf = txt[:, i:i + cs].float()
@@ -241,7 +299,7 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         zs = zf - zf.amax(dim=-1, keepdim=True).detach()
         lse = torch.log(torch.exp(zs).sum(dim=-1))
         valid = t >= 0
-        tl = zs.gather(-1, t.clamp(min=0)[..., None])[..., 0]
+        tl = _target_logit(zs, t)
         nll_sum = nll_sum + torch.where(valid, lse - tl, 0.0).sum()
         count = count + valid.sum()
     return nll_sum / torch.clamp(count, min=1) + aux_weight * aux
@@ -262,7 +320,7 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     over `pos` cached tokens (+ the O(1) state of recurrent blocks).
     """
     check_supported(cfg)
-    x = params["embed"][tokens]
+    x = embed_inputs(params, cfg, tokens)
     idx = None
     attn = [f"b{i}_{b.kind}" for i, b in enumerate(cfg.unit)
             if b.kind == "attn"]
@@ -287,9 +345,19 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                 x, new = _DECODE[b.kind](p, cfg, x,
                                          {key: t[r] for key, t in c.items()})
                 for key, t in new.items():
-                    c[key][r] = t
+                    c[key][r] = _placed_as(t, c[key][r])
+            x = constrain(x, "BATCH")       # reduce a row-parallel partial
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), cache
+    return constrain(x @ _head(params, cfg), "BATCH", None, "model"), cache
+
+
+def _placed_as(t, like):
+    """t placed as the cache slice `like` it is written into (a DTensor
+    copy_ into a slice placed otherwise would change the slice's
+    placements, which DTensor refuses)."""
+    if _is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,

@@ -17,8 +17,17 @@ primitives `_permute`, `_slot_gather` and `_pick` were tried there and
 refuted, and no code of it calls them.  They are ported below as
 `torch.autograd.Function`s, with the index maps only their backward
 passes read (`backward_maps`: `token_slot`, `slot_s`), and stay off
-`apply_moe`'s path as they do in the reference.  `apply_moe(...,
-return_aux=True)` also returns the Switch load-balance loss.
+`apply_moe`'s path as they do in the reference; the grouped dispatch below
+does not take them up either.  `apply_moe(..., return_aux=True)` also
+returns the Switch load-balance loss.
+
+Dispatch groups, the reference's: under a mesh (`common.set_mesh`) the
+tokens are routed in one group per data shard (`_n_dispatch_groups`), each
+with its own capacity, and each rank dispatches and combines its own
+groups on its shards (`local_map`, as GSPMD partitions the reference's
+vmap over groups); the groups meet only where the (G, E, C, d) buffer is
+placed onto the experts (`constrain`, expert-parallel when E divides the
+model axis).  Without a mesh there is one group.
 """
 from __future__ import annotations
 
@@ -26,14 +35,9 @@ from typing import Tuple
 
 import torch
 
-from .common import dense_init, dtype_of, rms_norm, silu
-
-# Dispatch groups: the reference's `_n_dispatch_groups` gives one routing
-# group per data shard under a mesh, and 1 without one.  The port has no
-# mesh, so the whole batch is one group, as on a single device there;
-# per-shard groups come with the distribution layer (ROADMAP A 6).
-DISPATCH_GROUPS = 1
-
+from .common import (_is_dtensor, axis_size, batch_axes, constrain,
+                     dense_init, dtype_of, on_shards, rms_norm, shard_kinds,
+                     silu)
 
 # --- gather-only autodiff primitives (off the path; see above) ---------
 # Every index map here is a (partial) permutation, so each backward pass
@@ -190,32 +194,132 @@ def _combine_group(out_e: torch.Tensor, meta, gates: torch.Tensor,
                         gates)
 
 
-def capacity(cfg, T: int, S: int) -> int:
-    """Slots per expert: C = Tg at decode (an expert's load is at most Tg,
-    so decode never drops a token), else Tg·k/E·capacity_factor."""
-    Tg = T // DISPATCH_GROUPS
+def _n_dispatch_groups(T: int) -> int:
+    """Group-local dispatch: one routing group per data shard of the
+    ambient mesh (the product of its batch axes' sizes, halved until it
+    divides T), so the argsort and gathers stay on each shard and the
+    groups meet only in the resharding of the (G, E, C, d) buffer; 1
+    without a mesh."""
+    g = 1
+    for a in batch_axes():      # includes `model` under pure-DP mappings
+        g *= axis_size(a)
+    while T % g:
+        g //= 2
+    return max(g, 1)
+
+
+def _model_axis_size() -> int:
+    return axis_size("model")
+
+
+def capacity(cfg, T: int, S: int, G: int = 1) -> int:
+    """Slots per expert and group of T // G tokens: C = Tg at decode (an
+    expert's load is at most Tg, so decode never drops a token), else
+    Tg·k/E·capacity_factor."""
+    Tg = T // G
     if S == 1:
         return Tg
     return max(int(Tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
 
 
+def _stack(ts):
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
+def _dispatch(hf, idx, E: int, k: int, C: int):
+    """`_dispatch_group` over each of G groups: hf (G, Tg, d), idx
+    (G, Tg, k) -> buf (G, E, C, d) and the (G, Tg·k) maps dest, keep,
+    inv_order."""
+    outs = [_dispatch_group(hf[g], idx[g], E, k, C)
+            for g in range(hf.shape[0])]
+    return (_stack([o[0] for o in outs]),
+            *(_stack([o[1][i] for o in outs]) for i in range(3)))
+
+
+def _combine(out_e, dest, keep, inv_order, gates, k: int):
+    """`_combine_group` over each group: (G, E, C, d) -> (G, Tg, d) f32."""
+    return _stack([_combine_group(out_e[g], (dest[g], keep[g], inv_order[g]),
+                                  gates[g], k)
+                   for g in range(out_e.shape[0])])
+
+
+def _route(logits, k: int):
+    """`router_topk`; a DTensor routes on each rank's tokens (the choice
+    is per token, and some DTensor releases lack a sharding strategy for
+    the top-k's backward)."""
+    if _is_dtensor(logits):
+        dims = ({"batch": 0},)
+        if shard_kinds((logits,), dims)[1] is None:
+            return on_shards("router_topk", lambda z: router_topk(z, k),
+                             (logits,), dims, dims * 2)
+    return router_topk(logits, k)
+
+
+def _per_group(fn, n_out: int, *args):
+    """fn over DTensor arguments sharded by group (dim 0) only: each rank
+    runs it on its own groups (the reference vmaps the dispatch over the
+    group axis, which GSPMD keeps on each shard); plain tensors pass
+    through."""
+    if not _is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(args[0].placements)
+    in_pl = tuple(pl if _is_dtensor(a) else None for a in args)
+    # local_map reads a tuple as one placement list per output
+    return local_map(fn, out_placements=(pl,) * n_out if n_out > 1
+                     else list(pl),
+                     in_placements=in_pl, device_mesh=args[0].device_mesh
+                     )(*args)
+
+
+def _as_rows(y, x):
+    """y (G, Tg, d) placed over the groups as x (B, S, d) is over its
+    batch, so that y reshapes to x's shape shard by shard (G may exceed
+    the batch shards: then one row spans several groups)."""
+    if not _is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Shard(0) if p.is_shard(0) else Replicate()
+               for p in x.placements)
+    return y if tuple(y.placements) == pl \
+        else y.redistribute(y.device_mesh, pl)
+
+
 def apply_moe(params: dict, cfg, x: torch.Tensor, *,
               return_aux: bool = False):
     """x (B, S, d) -> x + the routed experts' SwiGLU output, and with
-    `return_aux` also the block's `load_balance_loss` (f32 scalar)."""
+    `return_aux` also the block's `load_balance_loss` (f32 scalar).
+
+    The B·S tokens are routed in G groups (`_n_dispatch_groups`: one per
+    data shard under a mesh, 1 without), each with its own capacity."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    C = capacity(cfg, B * S, S)
+    T = B * S
+    G = _n_dispatch_groups(T)
+    Tg = T // G
+    C = capacity(cfg, T, S, G)
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    hf = h.reshape(B * S, d)
-    logits = hf.float() @ params["router"]
-    gates, idx = router_topk(logits, k)
-    buf, meta = _dispatch_group(hf, idx, E, k, C)               # (E, C, d)
-    up = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
-    gate = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
-    out_e = torch.einsum("ecf,efd->ecd", silu(gate) * up, params["w_down"])
-    y = _combine_group(out_e, meta, gates, k)                   # (Tg, d) f32
-    out = x + y.reshape(B, S, d).to(x.dtype)
+    # (the gradient is left in the reshape's placement: G may shard more
+    # ways than the batch, and a gradient placed so cannot be viewed back)
+    hf = constrain(h.reshape(G, Tg, d), "BATCH", bind_grad=False)
+    logits = constrain(hf.reshape(T, d).float() @ params["router"],
+                       "BATCH")                                 # (T, E)
+    gates, idx = _route(logits, k)
+    gates, idx = (constrain(a.reshape(G, Tg, k), "BATCH")
+                  for a in (gates, idx))
+    buf, dest, keep, inv_order = _per_group(
+        lambda hh, ii: _dispatch(hh, ii, E, k, C), 4, hf, idx)
+    # data -> expert boundary: the resharding below is the all-to-all
+    ep = "model" if E % _model_axis_size() == 0 else None
+    buf = constrain(buf, "BATCH", ep)                          # (G, E, C, d)
+    up = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
+    gate = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
+    out_e = torch.einsum("gecf,efd->gecd", silu(gate) * up, params["w_down"])
+    out_e = constrain(out_e, "BATCH", ep)
+    out_e = constrain(out_e, "BATCH")     # back on the groups' shards
+    y = _per_group(lambda oo, de, ke, io, gg: _combine(oo, de, ke, io, gg, k),
+                   1, out_e, dest, keep, inv_order, gates)      # (G, Tg, d)
+    out = x + _as_rows(y, x).reshape(B, S, d).to(x.dtype)
     if return_aux:
         return out, load_balance_loss(logits, idx, E)
     return out

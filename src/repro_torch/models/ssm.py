@@ -34,13 +34,15 @@ Conventions:
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .common import dense_init, dtype_of, rms_norm, silu
+from .common import (_is_dtensor, constrain, dense_init, dtype_of,
+                     on_shards, pad, rms_norm, silu)
 
 # ======================================================================
 # Mamba2
@@ -72,7 +74,7 @@ def _causal_conv_full(x: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, x: (B,S,C), w: (K,C), zeros before t = 0."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = pad(x, (0, 0, K - 1, 0))
     out = sum(xp[:, j:j + S] * w[j] for j in range(K))
     return out + b
 
@@ -95,7 +97,7 @@ def _mamba_inner(cfg, params, h, conv_state=None):
         # the zeros the conv saw before t = 0 in front (the reference
         # keeps only the prompt's rows there: ROADMAP C7)
         K1 = cfg.d_conv - 1
-        new_conv_state = F.pad(xbc, (0, 0, max(K1 - xbc.shape[1], 0), 0)
+        new_conv_state = pad(xbc, (0, 0, max(K1 - xbc.shape[1], 0), 0)
                                )[:, -K1:]
     xbc = silu(conv)
     xs, Bm, Cm = torch.split(xbc, [di, ds, ds], dim=-1)
@@ -114,8 +116,26 @@ def _blocks(a: torch.Tensor, L: int, fill: float = 0.0) -> torch.Tensor:
     """(B, S, ...) -> (B, n, L, ...), padded with `fill` past S."""
     B, S = a.shape[:2]
     n = -(-S // L)
-    a = F.pad(a, (0, 0) * (a.dim() - 2) + (0, n * L - S), value=fill)
+    a = pad(a, (0, 0) * (a.dim() - 2) + (0, n * L - S), value=fill)
     return a.reshape(B, n, L, *a.shape[2:])
+
+
+def _scan_on_shards(name, fn, rows, whole, init_state):
+    """A chunk scan of DTensors: each rank scans its own batch rows (the
+    scan is per row), the per-row inputs `rows` batch-sharded and the
+    parameters `whole` replicated first (`constrain`)."""
+    rows = [constrain(a, "BATCH") for a in rows]
+    whole = [constrain(a) for a in whole]
+    b = {"batch": 0}
+    args, dims = rows + whole, [b] * len(rows) + [{}] * len(whole)
+    if init_state is not None:
+        args.append(constrain(init_state, "BATCH"))
+        dims.append(b)
+
+    def local(*a):
+        init = a[len(rows) + len(whole)] if init_state is not None else None
+        return fn(*a[:len(rows) + len(whole)], init_state=init)
+    return on_shards(name, local, args, dims, (b, b))
 
 
 def _carry(s0: torch.Tensor, decay: torch.Tensor, inc: torch.Tensor):
@@ -149,6 +169,10 @@ def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     chunk to chunk (`_carry`).  Returns (y (B,S,nh,hd), final_state
     (B,nh,hd,ds)), f32, y including D x.
     """
+    if _is_dtensor(xh):
+        return _scan_on_shards("mamba2_chunk_scan", functools.partial(
+            mamba2_chunk_scan, chunk=chunk), (xh, Bm, Cm, dt), (A, D),
+            init_state)
     B, S, nh, hd = xh.shape
     ds = Bm.shape[-1]
     Lc = min(chunk, S)
@@ -181,16 +205,16 @@ def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 
 
 def mamba2_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
-                impl: Optional[str] = None,
+                impl: Optional[str] = None, chunk_scans: bool = False,
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence Mamba2 block.  mode="train" takes
+    """Full-sequence Mamba2 block.  mode="train" (or `chunk_scans`) takes
     `mamba2_chunk_scan`; mode="prefill" takes `ops.ssd_scan` (`impl`
     picks its version) on xt = x dt and lA = dt A, y gaining D x as in the
     chunk scan."""
     B, S, _ = x.shape
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     z, xh, Bm, Cm, dt, A, conv_state = _mamba_inner(cfg, params, h)
-    if mode == "train":
+    if mode == "train" or chunk_scans:
         y, state = mamba2_chunk_scan(xh, Bm, Cm, dt, A, params["D"])
     else:
         y, state = ops.ssd_scan(xh * dt[..., None], Bm, Cm, dt * A,
@@ -210,12 +234,13 @@ def mamba2_decode(params, cfg, x: torch.Tensor, cache: dict,
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     z, xh, Bm, Cm, dt, A, new_conv = _mamba_inner(
         cfg, params, h, conv_state=cache["conv"])
-    dA = torch.exp(dt[:, 0] * A)                               # (B, nh)
+    xh, Bm, Cm, dt = (constrain(a, "BATCH") for a in (xh, Bm, Cm, dt))
+    dA = torch.exp(dt[:, 0] * constrain(A))                    # (B, nh)
     xt = xh[:, 0] * dt[:, 0, :, None]                          # (B, nh, hd)
-    s_new = cache["ssm"] * dA[..., None, None] \
+    s_new = constrain(cache["ssm"], "BATCH") * dA[..., None, None] \
         + torch.einsum("bnp,bs->bnps", xt, Bm[:, 0])
     y = torch.einsum("bnps,bs->bnp", s_new, Cm[:, 0]) \
-        + xh[:, 0] * params["D"][None, :, None]
+        + xh[:, 0] * constrain(params["D"])[None, :, None]
     out = _mamba_out(params, cfg, x, z, y.reshape(B, 1, cfg.d_inner))
     return out, {"conv": new_conv, "ssm": s_new}
 
@@ -260,8 +285,12 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None):
 
 
 def _rwkv_decay(params, xw: torch.Tensor, H: int, hd: int) -> torch.Tensor:
-    lora = torch.tanh(xw.float() @ params["wA"]) @ params["wB"]
-    w = torch.exp(-torch.exp(params["w0"].reshape(-1) + lora))  # (0, 1)
+    # the low-rank product is a partial sum under a mesh: reduce it before
+    # it meets w0
+    lora = constrain(torch.tanh(xw.float() @ params["wA"]) @ params["wB"],
+                     "BATCH")
+    w = torch.exp(-torch.exp(constrain(params["w0"]).reshape(-1)
+                             + lora))                          # (0, 1)
     return w.reshape(*xw.shape[:-1], H, hd)
 
 
@@ -321,6 +350,9 @@ def wkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r,k,v,w: (B,S,H,hd), u: (H,hd).  Returns (out (B,S,H,hd), final_state
     (B,H,hd,hd) [k-dim, v-dim]), f32.
     """
+    if _is_dtensor(r):
+        return _scan_on_shards("wkv6_chunk_scan", functools.partial(
+            wkv6_chunk_scan, chunk=chunk), (r, k, v, w), (u,), init_state)
     B, S, H, hd = r.shape
     L = min(chunk, SUB_CHUNK, S)
     r_, k_, v_ = (_blocks(a.float(), L) for a in (r, k, v))
@@ -350,18 +382,20 @@ def wkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def rwkv6_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
-               impl: Optional[str] = None,
+               impl: Optional[str] = None, chunk_scans: bool = False,
                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence RWKV6 block.  mode="train" takes `wkv6_chunk_scan`;
-    mode="prefill" takes `ops.wkv_scan` (`impl` picks its version)."""
+    """Full-sequence RWKV6 block.  mode="train" (or `chunk_scans`) takes
+    `wkv6_chunk_scan`; mode="prefill" takes `ops.wkv_scan` (`impl` picks
+    its version)."""
     H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     h = rms_norm(x, params["norm_tm"], cfg.norm_eps)
     r, k, v, g, w = _time_mix_in(params, h, _shift(h), H, hd)
-    if mode == "train":
+    if mode == "train" or chunk_scans:
         out, state = wkv6_chunk_scan(r, k, v, w, params["u"])
     else:
         out, state = ops.wkv_scan(r, k, v, w, params["u"], impl=impl)
-    x = _time_mix_out(params, cfg, x, out, g)
+    # the time mix's residual is a row-parallel partial under a mesh
+    x = constrain(_time_mix_out(params, cfg, x, out, g), "BATCH")
     x, h2 = _channel_mix(params, cfg, x)
     cache = None
     if mode == "prefill":
@@ -379,12 +413,15 @@ def rwkv6_decode(params, cfg, x: torch.Tensor, cache: dict,
     h = rms_norm(x, params["norm_tm"], cfg.norm_eps)
     r, k, v, g, w = _time_mix_in(params, h, _shift(h, cache["shift_tm"]),
                                  H, hd)
-    r, k, v, w = r[:, 0], k[:, 0], v[:, 0], w[:, 0]          # (B, H, hd)
-    S_prev = cache["wkv"]
+    r, k, v, w = (constrain(a[:, 0], "BATCH")                # (B, H, hd)
+                  for a in (r, k, v, w))
+    S_prev = constrain(cache["wkv"], "BATCH")
     out = torch.einsum("bhd,bhde->bhe", r, S_prev) \
-        + torch.einsum("bhd,bhd->bh", r, params["u"][None] * k)[..., None] \
+        + torch.einsum("bhd,bhd->bh", r, constrain(params["u"])[None] * k
+                       )[..., None] \
         * v
     s_new = S_prev * w[..., None] + torch.einsum("bhd,bhe->bhde", k, v)
-    x = _time_mix_out(params, cfg, x, out.reshape(B, 1, H, hd), g)
+    x = constrain(_time_mix_out(params, cfg, x, out.reshape(B, 1, H, hd), g),
+                  "BATCH")
     x, h2 = _channel_mix(params, cfg, x, cache["shift_cm"])
     return x, {"wkv": s_new, "shift_tm": h[:, 0], "shift_cm": h2[:, 0]}

@@ -943,3 +943,136 @@ def test_whisper_decode_through_kernel_on_card(gen):
             assert max(rel) <= LOGIT_REL_BOUND and tie_ok
             tokens = a[:, 0].argmax(-1, keepdim=True)
     assert flash_decode.launches - before == cfg.attn_block_count * 4
+
+
+# ---- the distribution layer on the card (chip_smoke.py phase 16b) -------
+
+@pytest.fixture
+def one_rank_mesh(gen, tmp_path):
+    """A (1, 1) ("data", "model") mesh over an NCCL group of one rank."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), world_size=1, rank=0,
+        device_id=torch.device("cuda", 0))
+    try:
+        yield make_local_mesh(model=1, data=1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dtensor_step(mesh, cfg, params, fn, *args):
+    from repro_torch.launch.sharding import distribute, param_specs
+    from repro_torch.models.common import set_mesh
+    dparams = distribute(params, param_specs(cfg, params, mesh,
+                                             mode="serve"), mesh)
+    with set_mesh(mesh), torch.no_grad():
+        return fn(dparams, *args)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@pytest.mark.parametrize("arch", ["llama31-8b", "granite-moe-1b-a400m"])
+def test_dtensor_decode_bit_equal_on_card(gen, one_rank_mesh, arch):
+    """A decode step at full width (2 repeats) on DTensors placed by the
+    serve rules equals the plain-tensor step bit for bit, logits and cache,
+    with the same flash_decode launches (phase 16b at reduced depth)."""
+    from repro_torch.launch.sharding import (batch_specs, cache_specs,
+                                             distribute)
+    mesh = one_rank_mesh
+    cfg = dataclasses.replace(get_config(arch), n_repeat=2)
+    params = M.init_params(cfg, gen, "cuda")
+    B, T = 16, 256
+    cache = M.init_cache(cfg, B, T, device="cuda")
+    for blk in cache.values():
+        for t in blk.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                           device="cuda")
+    pos = np.random.default_rng(0).integers(1, T, B)
+    copy = {n: {k: t.clone() for k, t in c.items()} for n, c in cache.items()}
+    before = flash_decode.launches
+    with torch.no_grad():
+        want, want_cache = M.decode_step(params, cfg, tokens, copy, pos)
+    plain_launches = flash_decode.launches - before
+    dcache = distribute(cache, cache_specs(cfg, cache, mesh, batch=B), mesh)
+    dtok = distribute(tokens, batch_specs(mesh, B) + (None,), mesh)
+    got, got_cache = _dtensor_step(
+        mesh, cfg, params,
+        lambda p: M.decode_step(p, cfg, dtok, dcache, pos))
+    assert flash_decode.launches - before == 2 * plain_launches \
+        == 2 * cfg.attn_block_count
+    assert torch.equal(_full(got), want)
+    for n, c in want_cache.items():
+        for k, t in c.items():
+            assert torch.equal(_full(got_cache[n][k]), t), (n, k)
+
+
+def test_dtensor_prefill_bit_equal_on_card(gen, one_rank_mesh):
+    """zamba2-2.7b at full width, one repeat: a 1015-token prefill on
+    DTensors equals the plain-tensor prefill bit for bit, logits and
+    states, with the same mamba_scan launches."""
+    from repro_torch.launch.sharding import batch_specs, distribute
+    mesh = one_rank_mesh
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_repeat=1)
+    params = M.init_params(cfg, gen, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (1, 1015), generator=gen,
+                           device="cuda")
+    before = mamba_scan.launches
+    with torch.no_grad():
+        want, want_cache = M.forward(params, cfg, tokens, mode="prefill")
+    dtok = distribute(tokens, batch_specs(mesh, 1) + (None,), mesh)
+    got, got_cache = _dtensor_step(
+        mesh, cfg, params,
+        lambda p: M.forward(p, cfg, dtok, mode="prefill"))
+    assert mamba_scan.launches - before == 2 * 5
+    assert torch.equal(_full(got), want)
+    for n, c in want_cache.items():
+        for k, t in c.items():
+            assert torch.equal(_full(got_cache[n][k]), t), (n, k)
+
+
+def test_dtensor_kernels_refuse_split_reductions_on_card(gen):
+    """On a fake 2-rank mesh over CUDA shards: flash_decode on a
+    batch-sharded DTensor runs the kernel on each rank's shard (equal to
+    the plain version on it); a KV sequence or a scan sequence split over
+    ranks raises NotImplementedError and launches nothing."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.kernels import ops
+    dist.init_process_group("fake", store=FakeStore(), world_size=2, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("data",))
+        B, H, K, D, T = 4, 8, 2, 64, 128
+        q = torch.randn(B // 2, H, D, generator=gen, device="cuda")
+        k = torch.randn(B // 2, T, K, D, generator=gen, device="cuda")
+        v = torch.randn(B // 2, T, K, D, generator=gen, device="cuda")
+        lengths = torch.full((B // 2,), T, dtype=torch.int32, device="cuda")
+        dt = [DTensor.from_local(t, mesh, [Shard(0)], run_check=False)
+              for t in (q, k, v, lengths)]
+        out = ops.decode_attention(*dt)
+        assert tuple(out.placements) == (Shard(0),)
+        torch.testing.assert_close(out.to_local(), flash_decode_ref(
+            q, k, v, lengths), atol=2e-5, rtol=1e-2)
+        kseq = DTensor.from_local(k[:, :T // 2], mesh, [Shard(1)],
+                                  run_check=False)
+        rep = [DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+               for t in (q, lengths)]
+        before = flash_decode.launches
+        with pytest.raises(NotImplementedError, match="cross-rank merge"):
+            ops.decode_attention(rep[0], kseq, kseq, rep[1])
+        xt = DTensor.from_local(torch.randn(1, 16, 2, 8, device="cuda"),
+                                mesh, [Shard(1)], run_check=False)
+        bm = DTensor.from_local(torch.randn(1, 16, 8, device="cuda"), mesh,
+                                [Shard(1)], run_check=False)
+        la = DTensor.from_local(-torch.rand(1, 16, 2, device="cuda"), mesh,
+                                [Shard(1)], run_check=False)
+        with pytest.raises(NotImplementedError, match="cross-rank merge"):
+            ops.ssd_scan(xt, bm, bm, la)
+        assert flash_decode.launches == before
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,209 @@
+"""The port's dry run: collective records, per-rank costs, the fake
+production meshes, and every arch's reduced config traced on a fake
+(2, 4) mesh.
+
+Twins of tests/launch/test_launch.py's `test_collective_parser` and
+`test_roofline_terms_dominance` (the latter on the reference's TPU v5e
+constants, read from `repro.core.hardware`, and on the port's H100
+defaults) and of its subprocess smoke (`python -m
+repro_torch.launch.dryrun --arch whisper-medium --shape decode_32k` in a
+child process, at the full 16 x 16 mesh).  The fake process group moves
+no data: these tests check what the trace records, not numbers.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import types
+
+import pytest
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro.core.hardware import V5E_HBM_BW, V5E_ICI_BW, V5E_PEAK_FLOPS
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.hlo_analysis import (StepRecorder, collective_bytes,
+                                             roofline_from_counts,
+                                             roofline_terms)
+from repro_torch.launch.mesh import fake_mesh, make_production_mesh
+from repro_torch.launch.shapes import InputShape
+from repro_torch.launch.sharding import distribute
+from repro_torch.models.common import on_shards, shard_kinds
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SMALL = {"train_4k": InputShape("train_4k", 32, 8, "train"),
+         "prefill_32k": InputShape("prefill_32k", 32, 8, "prefill"),
+         "decode_32k": InputShape("decode_32k", 32, 8, "decode"),
+         "long_500k": InputShape("long_500k", 128, 1, "decode")}
+SMALL_MESH = ((2, 4), ("data", "model"))
+
+
+def _dt(mesh, shape, dtype, placements):
+    """A DTensor of global `shape` with an empty local shard."""
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(torch.empty(local, dtype=dtype), mesh,
+                              placements, run_check=False)
+
+
+def test_collective_records():
+    """An all-gather of bf16 (128, 128) and an all-reduce of f32 (4, 4)
+    on the fake 16 x 16 mesh: result bytes per kind, as the reference
+    parses them from HLO."""
+    with make_production_mesh() as mesh, FakeTensorMode():
+        a = _dt(mesh, (128, 128), torch.bfloat16, [Shard(0), Replicate()])
+        b = _dt(mesh, (4, 4), torch.float32, [Replicate(), Partial()])
+        rec = StepRecorder()
+        with rec:
+            a.redistribute(mesh, [Replicate(), Replicate()])
+            b.redistribute(mesh, [Replicate(), Replicate()])
+    c = collective_bytes(rec.records)
+    assert c["all-gather"] == 128 * 128 * 2
+    assert c["all-reduce"] == 4 * 4 * 4
+    assert c["reduce-scatter"] == c["all-to-all"] == 0
+    assert c["total"] == c["all-gather"] + c["all-reduce"]
+    assert set(c) == {"all-gather", "all-reduce", "reduce-scatter",
+                      "all-to-all", "collective-permute", "total"}
+
+
+def test_roofline_terms_dominance():
+    v5e = dict(peak_flops=V5E_PEAK_FLOPS, hbm_bw=V5E_HBM_BW,
+               ici_bw=V5E_ICI_BW)
+    t = roofline_terms({"flops": 197e12, "bytes accessed": 10.0}, [], **v5e)
+    assert t.compute_s == pytest.approx(1.0)
+    assert t.dominant == "compute"
+    t2 = roofline_terms({"flops": 1.0, "bytes accessed": 819e9}, [], **v5e)
+    assert t2.dominant == "memory"
+    # the port's defaults are the H100's
+    t3 = roofline_terms({"flops": 989e12, "bytes accessed": 1.0}, [])
+    assert t3.compute_s == pytest.approx(1.0)
+    t4 = roofline_from_counts(1.0, 1.0, {"all-reduce": 225e9})
+    assert t4.collective_s == pytest.approx(1.0) and t4.dominant == \
+        "collective"
+
+
+@pytest.mark.parametrize("sharded", [True, False])
+def test_per_rank_flops(sharded):
+    """A fully sharded matmul counts 1/256 of its global flops on a rank,
+    a replicated one all of them."""
+    M, K, N = 512, 256, 1024
+    with make_production_mesh() as mesh, FakeTensorMode():
+        if sharded:
+            x = _dt(mesh, (M, K), torch.bfloat16, [Shard(0), Replicate()])
+            w = _dt(mesh, (K, N), torch.bfloat16, [Replicate(), Shard(1)])
+        else:
+            x = _dt(mesh, (M, K), torch.bfloat16, [Replicate()] * 2)
+            w = _dt(mesh, (K, N), torch.bfloat16, [Replicate()] * 2)
+        rec = StepRecorder()
+        with rec:
+            y = x @ w
+        assert tuple(y.placements) == ((Shard(0), Shard(1)) if sharded
+                                       else (Replicate(), Replicate()))
+    assert rec.flops == 2 * M * K * N // (256 if sharded else 1)
+    assert rec.records == []
+    assert rec.peak == M * N * 2 // (256 if sharded else 1)
+
+
+def test_fake_group_destroyed_and_live_group_refused():
+    assert not dist.is_initialized()
+    with make_production_mesh(multi_pod=True) as mesh:
+        assert dist.get_world_size() == 512
+        assert mesh.mesh_dim_names == ("pod", "data", "model")
+        with pytest.raises(RuntimeError, match="already live"):
+            with make_production_mesh():
+                pass
+        assert dist.get_world_size() == 512
+    assert not dist.is_initialized()
+    with make_production_mesh() as mesh:
+        assert dist.get_world_size() == 256 and tuple(mesh.shape) == (16, 16)
+    assert not dist.is_initialized()
+
+
+def test_distribute_refuses_uneven_shards():
+    with fake_mesh(*SMALL_MESH) as mesh, FakeTensorMode():
+        t = torch.empty(6, 8, device="meta")
+        with pytest.raises(ValueError, match="does not divide"):
+            distribute(t, ("model", None), mesh)
+        d = distribute(t, ("data", "model"), mesh)
+        assert tuple(d.to_local().shape) == (3, 2)
+
+
+def test_local_work_rule():
+    """Kernels and attention run on local shards only where batch or heads
+    are sharded; a sharded sequence is refused by name."""
+    with fake_mesh(*SMALL_MESH) as mesh, FakeTensorMode():
+        q = _dt(mesh, (8, 4, 16), torch.float32, [Shard(0), Shard(1)])
+        kv_heads = _dt(mesh, (8, 32, 4, 16), torch.float32,
+                       [Shard(0), Shard(2)])
+        kv_seq = _dt(mesh, (8, 32, 4, 16), torch.float32,
+                     [Shard(0), Shard(1)])
+        dims = ({"batch": 0, "heads": 1}, {"batch": 0, "heads": 2},
+                {"batch": 0, "heads": 2})
+        assert shard_kinds((q, kv_heads, kv_heads), dims) == (
+            ["batch", "heads"], None)
+        kinds, reason = shard_kinds((q, kv_seq, kv_seq), dims)
+        assert kinds is None and "S(1)" in reason
+        with pytest.raises(NotImplementedError, match="cross-rank merge"):
+            on_shards("flash_decode", lambda *a: a[0], (q, kv_seq, kv_seq),
+                      dims, dims[:1])
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_reduced_pairs_on_a_fake_mesh(arch):
+    """Every shape of the reduced config (one repeat) traced on a fake
+    (2, 4) mesh: ok or the reference's skip, the traced arguments equal to
+    the rules'."""
+    cfg = get_config(arch).reduced(n_repeat=1)
+    stub = types.SimpleNamespace(shape={"data": 2, "model": 4},
+                                 axis_names=("data", "model"))
+    for name, shape in SMALL.items():
+        r = D.run_pair(arch, name, cfg=cfg, shape=shape,
+                       mesh_shape=SMALL_MESH[0], mesh_names=SMALL_MESH[1],
+                       save=False)
+        if r["status"] == "skip":
+            assert name == "long_500k", r
+            continue
+        assert r["status"] == "ok", r.get("traceback")
+        b = r["bytes_per_device"]
+        assert b["arguments"] == D.argument_bytes(cfg, shape, stub)
+        assert b["arguments"] <= b["peak"] and r["fits_h100"]
+        assert r["cost"]["flops"] > 0 and r["cost"]["bytes_accessed"] > 0
+        if shape.kind != "prefill":      # updated in place
+            assert b["aliased"] > 0
+    assert not dist.is_initialized()
+
+
+def test_failure_is_reported_not_ok(monkeypatch):
+    """A rule that puts `model` on a non-dividing dimension fails the
+    pair with its error; nothing turns it into ok."""
+    from repro_torch.launch import sharding
+    real = sharding._spec_for_param
+
+    def bad(path, shape, cfg, mesh, fsdp="data"):
+        if path == "embed":                  # (510, d): 510 % 4 != 0
+            return ("model", None)
+        return real(path, shape, cfg, mesh, fsdp=fsdp)
+
+    monkeypatch.setattr(sharding, "_spec_for_param", bad)
+    cfg = get_config("yi-6b").reduced(vocab=510)
+    r = D.run_pair("yi-6b", "decode_32k", cfg=cfg, shape=SMALL["decode_32k"],
+                   mesh_shape=SMALL_MESH[0], mesh_names=SMALL_MESH[1],
+                   save=False)
+    assert r["status"] == "fail" and "does not divide" in r["error"]
+    assert "traceback" in r and not dist.is_initialized()
+
+
+def test_dryrun_subprocess_smoke(tmp_path):
+    """One full 16 x 16 trace in a child process, its JSON written."""
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "whisper-medium", "--shape", "decode_32k", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert "decode_32k pod16x16: ok" in r.stdout, r.stdout + r.stderr
+    assert (tmp_path / "whisper-medium_decode_32k_pod16x16.json").exists()

@@ -1,0 +1,136 @@
+"""The distribution layer computing real numbers: four CPU processes over
+gloo on a (2, 2) ("data", "model") mesh.
+
+The fake process group of the dry run moves no data, so this is the one
+place the placements of `launch.sharding` and the model's `constrain`
+sites meet real values.  Each rank builds the same seeded reduced float32
+weights, distributes them by the rules and runs:
+
+  * yi-6b: one decode step on a random cache under the serve rules (batch
+    on `data`, heads, KV heads and the cache's heads on `model`), at
+    ragged positions;
+  * granite-moe-1b-a400m and zamba2-2.7b (one repeat): the loss and every
+    gradient leaf under the train rules (pure data parallelism: the batch
+    over both axes; four MoE dispatch groups; the chunk scans on each
+    rank's rows), with `remat=True`;
+
+and holds them to the same calls on plain tensors (one group, no remat)
+within 1e-5 of each tensor's largest magnitude.
+"""
+import socket
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.sharding import (batch_specs, cache_specs,
+                                         distribute, param_specs, pure_dp)
+from repro_torch.models import model as M
+from repro_torch.models.common import set_mesh
+from repro_torch.training.optimizer import tree_leaves
+from repro_torch.training.train import loss_and_grads
+
+TOL = 1e-5
+WORLD = 4
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _rel(got, want):
+    got, want = _full(got).detach(), want.detach()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
+
+
+def _decode(mesh):
+    cfg = get_config("yi-6b").reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, T = 4, 16
+    g = torch.Generator().manual_seed(1)
+    cache = M.init_cache(cfg, B, T, device="cpu")
+    for blk in cache.values():
+        for t in blk.values():
+            t.copy_(torch.randn(t.shape, generator=g))
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=g)
+    pos = np.array([3, 7, 15, 10])
+    want_cache = {n: {k: t.clone() for k, t in blk.items()}
+                  for n, blk in cache.items()}
+    want, want_cache = M.decode_step(params, cfg, tokens, want_cache, pos)
+    dparams = distribute(params, param_specs(cfg, params, mesh,
+                                             mode="serve"), mesh)
+    dcache = distribute(cache, cache_specs(cfg, cache, mesh, batch=B), mesh)
+    dtok = distribute(tokens, batch_specs(mesh, B) + (None,), mesh)
+    with set_mesh(mesh):
+        got, dcache = M.decode_step(dparams, cfg, dtok, dcache, pos)
+    errs = {"decode logits": _rel(got, want)}
+    for n, blk in dcache.items():
+        for k, t in blk.items():
+            errs[f"decode cache {n}/{k}"] = _rel(t, want_cache[n][k])
+    return errs
+
+
+def _train(mesh, arch, n_repeat=2):
+    cfg = get_config(arch).reduced(n_repeat=n_repeat)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, S = 8, 12
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g),
+             "labels": torch.randint(0, cfg.vocab, (B, S), generator=g)}
+    loss, grads = loss_and_grads(params, cfg, batch)
+    wide = pure_dp(cfg, mesh)
+    bspec = batch_specs(mesh, B, wide=wide)
+    dparams = distribute(params, param_specs(cfg, params, mesh), mesh)
+    dbatch = {k: distribute(v, bspec + (None,), mesh)
+              for k, v in batch.items()}
+    with set_mesh(mesh, batch_axes_override=("pod", "data", "model")
+                  if wide else None):
+        dloss, dgrads = loss_and_grads(dparams, cfg, dbatch, remat=True)
+    errs = {f"{arch} train loss": _rel(dloss, loss)}
+    for i, (a, b) in enumerate(zip(tree_leaves(dgrads), tree_leaves(grads))):
+        errs[f"{arch} grad leaf {i}"] = _rel(a, b)
+    return errs
+
+
+def _worker(rank, port, out):
+    torch.set_num_threads(1)        # four processes share the host's cores
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=WORLD, rank=rank)
+    try:
+        mesh = make_local_mesh(model=2, data=2, device="cpu")
+        errs = {**_decode(mesh), **_train(mesh, "granite-moe-1b-a400m"),
+                **_train(mesh, "zamba2-2.7b", 1)}
+        if rank == 0:
+            torch.save(errs, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_steps_match_unsharded(tmp_path):
+    out = tmp_path / "errs.pt"
+    ctx = mp.start_processes(_worker, args=(_free_port(), str(out)),
+                             nprocs=WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + 60
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                pytest.fail("the 4-process gloo run passed 60 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    errs = torch.load(out)
+    assert len(errs) > 10
+    bad = {k: v for k, v in errs.items() if not v <= TOL}
+    assert not bad, bad

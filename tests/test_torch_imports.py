@@ -1,8 +1,9 @@
 """Import and device hygiene of the port.
 
 The port, `chip_smoke.py` and the port's tools (`tools/port_fleet_bench.py`,
-`tools/port_paper_tables.py`, `tools/port_trace_report.py`) import neither
-jax nor the reference package `repro`; importing them leaves jax unloaded;
+`tools/port_paper_tables.py`, `tools/port_trace_report.py`,
+`tools/port_roofline_report.py`, `tools/port_opt_vs_baseline.py`) import
+neither jax nor the reference package `repro`; importing them leaves jax unloaded;
 the port's entry points refuse to run on CUDA when there is none instead
 of falling back to the CPU; and its kernel modules import where no CUDA
 toolkit is installed.
@@ -19,7 +20,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / f"{name}.py" for name in (
-        "port_fleet_bench", "port_paper_tables", "port_trace_report")]
+        "port_fleet_bench", "port_paper_tables", "port_trace_report",
+        "port_roofline_report", "port_opt_vs_baseline")]
 
 
 def _imported_roots(path):
@@ -51,9 +53,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.serving.graph_engine, repro_torch.core.topo_search, "
             "repro_torch.core.analyzer, repro_torch.core.adaptive, "
             "repro_torch.training, repro_torch.data, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.dryrun; "
             f"sys.path.insert(0, {str(ROOT / 'tools')!r}); "
-            "import port_fleet_bench, port_paper_tables, port_trace_report; "
+            "import port_fleet_bench, port_paper_tables, port_trace_report, "
+            "port_roofline_report, port_opt_vs_baseline; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

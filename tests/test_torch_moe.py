@@ -454,3 +454,63 @@ def test_moe_active_param_advantage_like_reference():
     w_ratio, adv8, _, adv_full = got
     assert w_ratio == pytest.approx(22e9 / 70.6e9, rel=0.02)
     assert 2.0 < adv8 < 5.0 and adv_full < adv8
+
+
+# ---- dispatch groups (the distribution layer's per-shard routing) ------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("B,S", [(4, 1), (4, 20)])
+def test_apply_moe_dispatch_groups_match_reference(arch, G, B, S,
+                                                   monkeypatch):
+    """`apply_moe` routed in G groups (as a mesh with G data shards routes
+    it) against the reference's, both packages' `_n_dispatch_groups` set to
+    G in this test: outputs within MOE_REL of max|out| and, at capacity
+    0.5, each group's dropped assignments the reference's exactly."""
+    jcfg, cfg = _configs(arch, 0.5)
+    jparams, params = _weights(arch)
+    monkeypatch.setattr(JMoE, "_n_dispatch_groups", lambda T: G)
+    monkeypatch.setattr(moe, "_n_dispatch_groups", lambda T: G)
+    jp, p = _moe_layer(jparams, params)
+    x = _x(cfg, B, S, seed=G + S)
+    want = np.asarray(JMoE.apply_moe(jp, jcfg, jnp.asarray(x)))
+    kept = []
+    real = moe._dispatch_group
+
+    def spy(hf, idx, E, k, C):
+        buf, meta = real(hf, idx, E, k, C)
+        kept.append(meta[1][meta[2]].reshape(-1, k).numpy())
+        return buf, meta
+
+    monkeypatch.setattr(moe, "_dispatch_group", spy)
+    got = moe.apply_moe(p, cfg, torch.as_tensor(x)).numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= MOE_REL, err
+    T, d, k = B * S, cfg.d_model, cfg.top_k
+    C = moe.capacity(cfg, T, S, G)
+    h = JMoE.rms_norm(jnp.asarray(x), jp["norm"], jcfg.norm_eps) \
+        .reshape(G, T // G, d)
+    assert len(kept) == G
+    for g in range(G):
+        _, idx = JMoE.router_topk(h[g] @ jp["router"], k)
+        _, (_, jkeep, _, _, jinv) = JMoE._dispatch_group(
+            h[g], None, idx, jcfg.n_experts, k, C)
+        np.testing.assert_array_equal(
+            kept[g], np.asarray(jkeep[jinv]).reshape(T // G, k))
+    every = np.concatenate(kept)
+    assert every.all() if S == 1 else not every.all()
+
+
+def test_dispatch_groups_follow_the_mesh():
+    """One group per data shard of the ambient mesh, halved until it
+    divides the tokens; 1 without a mesh; `model` too under pure DP."""
+    from repro_torch.models.common import set_mesh
+    mesh = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                 axis_names=("data", "model"))
+    assert moe._n_dispatch_groups(64) == 1
+    with set_mesh(mesh):
+        assert moe._n_dispatch_groups(4096) == 16
+        assert moe._n_dispatch_groups(24) == 8
+        assert moe._model_axis_size() == 16
+    with set_mesh(mesh, batch_axes_override=("pod", "data", "model")):
+        assert moe._n_dispatch_groups(256 * 4096) == 256
