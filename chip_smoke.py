@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
               4 x 1024), phase 14's two decode shapes (whisper-medium G=1
               D=64, llava-next-34b G=7 D=128), two larger
               ones, the ragged T and the paper's 64K window (4 x 65536),
-              float32 and bfloat16 at the limits of TOL; masked entries
+              float32 and bfloat16 at the limits of TOL; at each, the
+              kernel's softmax state (return_lse) within LSE_TOL of the
+              plain version's, and the f32 output that comes with it
+              rounded to the dtype equal to the output; masked entries
               overwritten with +-999 leave the output unchanged; a planted
               fault (every length one short, at llama's and granite's
               long pool) must fail the bfloat16 limit;
@@ -306,6 +309,17 @@ Phases, in order; any failure exits non-zero:
               flash_decode / mamba_scan launches in each (counts set to 0
               before each step, read after), twice (cold, warm), the walls
               printed side by side (DTensor's host cost);
+              16c on the card, llama31-8b's decode at the short and long
+              pools' shapes (SEQ_SHAPES, bf16) with its cache cut into 2
+              and 4 T-pieces, as ranks hold a sequence-sharded cache: each
+              piece through ops.decode_piece (the kernel at local lengths,
+              its f32 output and lse), the pieces' states stacked where
+              ranks all-gather them and merged by ops.merge_pieces, the
+              code each rank runs, within TOL of the unsliced
+              kernel and of the plain version; pieces that a short
+              sequence leaves empty; exactly one launch a piece (counts
+              set to 0 just before, read just after); eager ms beside the
+              unsliced call's;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -404,6 +418,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
 # than the JAX package's bf16 atol of 5e-2.
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-2),
        torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7)}
+# the softmax state lse = ln sum_t exp(s_t) of the kernel (base 2 inside:
+# (m + log2 l) ln 2, its exponentials the SFU's ex2 at ~2^-22 relative)
+# against torch.logsumexp on the same f32 scores: f32 summation order over
+# at most 65536 rows
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 SWEEP = [(2, 8, 4, 64, 100), (1, 16, 8, 128, 300), (3, 4, 4, 32, 64),
          (1, 4, 1, 128, 513)]           # (B, H, K, D, T)
 # the shapes the serve phases give flash_decode (batch = a pool's slots,
@@ -581,7 +600,9 @@ SSM_DEMO_ARGS = ["--preset", "10m", "--steps", "100", "--batch", "8",
 # phase 16: the dry run's pairs on the host (16a), each with the rule of
 # tests/launch/test_sharding_rules.py it exercises, and the card's steps
 # on a (1, 1) mesh (16b)
-DIST_PAIRS = [
+DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
+    ("llama31-70b", "train_4k", False,
+     "FSDP + TP, sequence-parallel residual (> 3e10 params)"),
     ("yi-6b", "decode_32k", False,
      "KV sequence-sharded on model (4 KV heads < 16)"),
     ("zamba2-2.7b", "decode_32k", False, "KV heads on model (32 KV heads)"),
@@ -598,8 +619,6 @@ DIST_PAIRS = [
      "serve drops FSDP (34 B), 2880-patch prefix"),
     ("whisper-medium", "decode_32k", False,
      "encoder-decoder: cross-attention cache, KV heads on model"),
-    ("llama31-70b", "train_4k", False,
-     "FSDP + TP, sequence-parallel residual (> 3e10 params)"),
     ("whisper-medium", "decode_32k", True,
      "the 2 x 16 x 16 mesh: batch over pod+data"),
 ]
@@ -607,6 +626,12 @@ DIST_WORKERS = 4                        # host processes tracing 16a's pairs
 DIST_FAULT = ((1000, 64), ("model", None))   # 1000 % 16 != 0
 DIST_DECODE = ("llama31-8b", MOE_ARCH)  # one decode step each, 16 x 256
 DIST_PROMPT = 1015                      # zamba2's prefill, as phase 7's
+# 16c: llama31-8b's decode in the pools phase 3 checks (G = 4, D = 128,
+# bf16), its cache cut into SEQ_SLICES pieces of T as ranks would hold a
+# sequence-sharded cache; the first sequences' lengths leave pieces empty
+SEQ_SHAPES = [(SHORT_POOL["n_slots"], 32, 8, 128, SHORT_POOL["window"]),
+              (LONG_POOL["n_slots"], 32, 8, 128, LONG_POOL["window"])]
+SEQ_SLICES = (2, 4)
 
 
 def log(msg: str) -> None:
@@ -702,13 +727,22 @@ def sdpa(q, k, v, mask):
 
 
 def check_kernel(shape, dtype, gen, *, strided_q=False):
+    """The kernel vs plain at `shape`; also its softmax state (return_lse)
+    vs the plain lse within LSE_TOL, and the f32 output that comes with it
+    the same values as the default output before their rounding to
+    `dtype`."""
     q, k, v, lengths = inputs(*shape, dtype, gen, strided_q=strided_q)
     out = flash_decode(q, k, v, lengths)
-    ref = flash_decode_ref(q, k, v, lengths)
+    ref, ref_lse = flash_decode_ref(q, k, v, lengths, return_lse=True)
+    out32, lse = flash_decode(q, k, v, lengths, return_lse=True)
     torch.cuda.synchronize()
     err = float((out.float() - ref).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    lse_ok = out32.dtype == torch.float32 \
+        and torch.equal(out32.to(dtype), out) \
+        and torch.allclose(lse, ref_lse, **LSE_TOL)
     ok = out.dtype == dtype and bool(torch.isfinite(out).all()) \
-        and torch.allclose(out.float(), ref, **TOL[dtype])
+        and torch.allclose(out.float(), ref, **TOL[dtype]) and lse_ok
     T = k.shape[1]
     past = torch.arange(T, device=DEVICE)[None, :, None, None] \
         >= lengths[:, None, None, None]
@@ -716,7 +750,9 @@ def check_kernel(shape, dtype, gen, *, strided_q=False):
                         v.masked_fill(past, -999.0), lengths)
     leak = not torch.equal(out, out2)
     log(f"  kernel {dtype} B,H,K,D,T={shape}: max_abs_err={err:.3e}"
-        f" ({TOL[dtype]}) masked_garbage_changed={leak}")
+        f" ({TOL[dtype]}) masked_garbage_changed={leak}; lse"
+        f" max_abs_err={lse_err:.3e} ({LSE_TOL}), its f32 out rounded"
+        f" equal: {lse_ok}")
     if not ok or leak:
         raise SystemExit(f"flash_decode disagrees with its plain version at"
                          f" {shape} {dtype}")
@@ -3456,9 +3492,67 @@ def dist_prefill(mesh):
     return rows[1]
 
 
+def t_slices(T, R):
+    """R pieces [t0, t1) of [0, T), as R ranks along T would hold them."""
+    cuts = [T * i // R for i in range(R + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+def sliced_decode(q, k, v, lengths, R):
+    """What R ranks of a cache sharded along T run, with the all-gather
+    replaced by a stack: each rank's `ops.decode_piece` (the kernel over
+    its T-piece at local lengths, f32 output and lse) and
+    `ops.merge_pieces` over the R states; q's dtype."""
+    states = [ops.decode_piece(q, k[:, t0:t1], v[:, t0:t1], lengths, t0,
+                               t1 - t0)
+              for t0, t1 in t_slices(k.shape[1], R)]
+    return ops.merge_pieces(torch.stack(states), q.dtype)
+
+
+def phase_seq_merge():
+    """16c: at llama31-8b's decode shapes, the kernel over SEQ_SLICES
+    T-pieces of one full-width cache, merged, within TOL[bf16] of the
+    unsliced kernel and of the plain version; R launches a merged call
+    (counts set to 0 just before, read just after); pieces that a short
+    sequence leaves empty drop out.  Eager ms beside the unsliced call's."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    for shape in SEQ_SHAPES:
+        q, k, v, lengths = inputs(*shape, dtype, gen)
+        T = shape[4]
+        lengths[:4] = torch.tensor([T, 1, T // 4 - 1, T // 2 + 1],
+                                   dtype=torch.int32, device=DEVICE)
+        whole = flash_decode(q, k, v, lengths)
+        ref = flash_decode_ref(q, k, v, lengths)
+        for R in SEQ_SLICES:
+            zero_counts()
+            merged = sliced_decode(q, k, v, lengths, R)
+            torch.cuda.synchronize()
+            n = counts_now()
+            empty = sum(int(((lengths - t0) <= 0).sum())
+                        for t0, _ in t_slices(T, R))
+            errs = [float((merged.float() - b.float()).abs().max())
+                    for b in (whole, ref)]
+            ok = all(torch.allclose(merged.float(), b.float(), **TOL[dtype])
+                     for b in (whole, ref)) and merged.dtype == dtype
+            ms = time_ms(lambda *a: sliced_decode(*a, R),
+                         [(q, k, v, lengths)], 50)
+            whole_ms = time_ms(flash_decode, [(q, k, v, lengths)], 50)
+            log(f"  16c B,H,K,D,T={shape} in {R} T-pieces: merged vs"
+                f" unsliced kernel max_abs_err {errs[0]:.3e}, vs plain"
+                f" {errs[1]:.3e} ({TOL[dtype]}); flash_decode launches"
+                f" {n['flash_decode']}; {empty} (piece, sequence) pairs"
+                f" empty; eager {ms:.4f} ms vs unsliced {whole_ms:.4f} ms")
+            if not ok or n != dict({k_: 0 for k_ in n}, flash_decode=R) \
+                    or not empty:
+                raise SystemExit(f"16c: the {R}-piece merge at {shape}"
+                                 f" disagrees ({errs}), launched {n}, or"
+                                 f" left no piece empty ({empty})")
+
+
 def phase_dist():
-    """Phase 16: 16a on the host, then 16b on the card over an NCCL group
-    of one rank (a FileStore under build/)."""
+    """Phase 16: 16a on the host, 16b on the card over an NCCL group of one
+    rank (a FileStore under build/), then 16c on the card."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     phase_dist_host()
@@ -3475,8 +3569,11 @@ def phase_dist():
         walls["zamba2-2.7b prefill"] = dist_prefill(mesh)
     finally:
         dist.destroy_process_group()
-    log(f"  phase 16 on {PFB.card_line()}: 16a {t16a:.1f} s; warm wall"
-        " plain / DTensor " + ", ".join(
+    t0 = time.perf_counter()
+    phase_seq_merge()
+    t16c = time.perf_counter() - t0
+    log(f"  phase 16 on {PFB.card_line()}: 16a {t16a:.1f} s, 16c"
+        f" {t16c:.1f} s; warm wall plain / DTensor " + ", ".join(
             f"{k} {a:.1f} / {b:.1f} ms" for k, (a, b) in walls.items()))
 
 
@@ -3614,7 +3711,8 @@ def main() -> int:
     phase_ssm_train()
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     log("[16] distribution: the dry run's pairs on the fake production"
-        " mesh, DTensor steps on a (1, 1) mesh on the card")
+        " mesh, DTensor steps on a (1, 1) mesh on the card, flash_decode"
+        " over T-pieces merged")
     t16 = time.perf_counter()
     phase_dist()
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")

@@ -4,7 +4,8 @@
 // base-2 exponentials, the lanes that read one row, and the end of a
 // piece: its warps' states combined in warp order, then written out
 // directly (one piece) or to scratch, where the last block of the
-// (sequence, kv head) to finish merges the pieces in piece order.
+// (sequence, kv head) to finish merges the pieces in piece order; either
+// also writes the softmax state lse where asked.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +15,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int MERGE_ITEMS = 4;     // outputs a thread merges at once
 constexpr int MERGE_UNROLL = 8;    // pieces of each it loads at once
 
@@ -91,12 +93,16 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // thread), and resets the ticket to 0.  No float atomics: two runs give
 // the same bits.  Reuses smem for the merge's weights: each warp region
 // must hold (G * MAX_SPLIT + G) * 4 / (THREADS / 32) + 16 bytes.  `out`
-// points at the (sequence, first head of the group) row of the output.
+// points at the (sequence, first head of the group) row of the output, of
+// the input's type or float.  Where `lse` (the same row of a (B, H) f32
+// array) is not null, the block that writes out also writes each head's
+// lse = ln sum_t exp(s_t) = (M + log2 L) ln 2 (M, L of the whole valid
+// length, base 2); out is the same either way.
 template <int THREADS, int MAX_SPLIT, typename T>
 __device__ __forceinline__ void finish_piece(
     unsigned char* smem, int warp_bytes, T* out, float* part,
     int32_t* tickets, int n_seq, int H, int n_kv, int G, int D, int b,
-    int kh, int split, int pieces, int n_split) {
+    int kh, int split, int pieces, int n_split, float* lse = nullptr) {
   constexpr int N_WARPS = THREADS / 32;
   __shared__ int last_block;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -124,6 +130,7 @@ __device__ __forceinline__ void finish_piece(
     }
     if (pieces == 1) {
       store(out + i, A / L);
+      if (lse != nullptr && d == 0) lse[g] = (M + log2f(L)) * LN2;
     } else {
       const int64_t hs = hs0 + static_cast<int64_t>(g) * n_split + split;
       acc_part[hs * D + d] = A;
@@ -173,6 +180,7 @@ __device__ __forceinline__ void finish_piece(
     }
     L = warp_sum(L);
     if (lane == 0) inv[g] = 1.f / L;
+    if (lane == 0 && lse != nullptr) lse[g] = (M + log2f(L)) * LN2;
   }
   __syncthreads();
   // out = sum_s w[g][s] acc_s / L_g in piece order; a thread takes

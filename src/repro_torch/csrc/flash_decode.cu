@@ -4,7 +4,11 @@
 // (`flash_decode`, body `_flash_decode_kernel`): out[b, h] = softmax over
 // t < min(lengths[b], T) of (q[b, h] . k[b, t, h / G]) / sqrt(D), times
 // v[b, t, h / G]; f32 arithmetic, output in q's dtype, a zero row where
-// lengths[b] <= 0.
+// lengths[b] <= 0.  On request the output in f32 with the softmax state
+// lse[b, h] = ln sum_t exp(s_t) (-inf where lengths[b] <= 0), with which
+// outputs over disjoint pieces of T merge into the output over their
+// union (kernels/ops.py merge_decode: a KV cache whose sequence is
+// sharded over ranks).
 //
 // Bound on an H100: bytes.  The valid K and V rows are read once,
 // sum_b min(lengths[b], T) * K * D * 2 * sizeof(T), plus q and out, over
@@ -80,6 +84,7 @@ struct Params {
   const void* v;
   const int32_t* lengths;
   void* out;
+  float* lse;         // (B, H) or null; where set, out is f32 (else T)
   float* part;        // m [B][H][n_split], l [B][H][n_split], acc [..][D]
   int32_t* tickets;   // [B][K], all 0 between launches
   int t_len, n_heads, n_kv, group, head_dim, piece, n_split, warp_bytes;
@@ -142,11 +147,21 @@ flash_decode_kernel(const Params p) {
   // lengths past the cache mean "all of it" (the reference's t < lengths)
   const int len = min(max(p.lengths[b], 0), p.t_len);
   const int pieces = (len + p.piece - 1) / p.piece;
-  T* out = static_cast<T*>(p.out)
-      + (static_cast<int64_t>(b) * H + static_cast<int64_t>(kh) * G) * D;
+  const int64_t row = static_cast<int64_t>(b) * H
+      + static_cast<int64_t>(kh) * G;
+  T* out = static_cast<T*>(p.out) + row * D;
+  float* out32 = static_cast<float*>(p.out) + row * D;
+  float* lse = p.lse != nullptr ? p.lse + row : nullptr;
   if (len == 0) {  // nothing to attend to: block 0 writes the zero rows
-    if (split == 0)
-      for (int i = tid; i < G * D; i += THREADS) store(out + i, 0.f);
+    if (split == 0) {
+      for (int i = tid; i < G * D; i += THREADS) {
+        if (lse != nullptr) store(out32 + i, 0.f);
+        else store(out + i, 0.f);
+      }
+      if (lse != nullptr)  // -inf
+        for (int g = tid; g < G; g += THREADS)
+          lse[g] = __uint_as_float(0xff800000u);
+    }
     return;
   }
   if (split >= pieces) return;
@@ -352,9 +367,14 @@ flash_decode_kernel(const Params p) {
 
   // the warps' states combined in warp order; one piece: out directly,
   // else the ticketed merge in piece order
-  finish_piece<THREADS, MAX_SPLIT>(smem, p.warp_bytes, out, p.part,
-                                   p.tickets, gridDim.y, H, p.n_kv, G, D, b,
-                                   kh, split, pieces, p.n_split);
+  if (lse != nullptr)
+    finish_piece<THREADS, MAX_SPLIT>(smem, p.warp_bytes, out32, p.part,
+                                     p.tickets, gridDim.y, H, p.n_kv, G, D,
+                                     b, kh, split, pieces, p.n_split, lse);
+  else
+    finish_piece<THREADS, MAX_SPLIT>(smem, p.warp_bytes, out, p.part,
+                                     p.tickets, gridDim.y, H, p.n_kv, G, D,
+                                     b, kh, split, pieces, p.n_split, lse);
 }
 
 template <typename T, int GB, bool WIDE, int NSEG>
@@ -410,14 +430,16 @@ extern "C" {
 // cudaError_t of the launch (0 on success); -1 for arguments outside what
 // the kernel takes.  strides: q batch, head; k batch, token, head; v the
 // same (elements; the last dimension of q, k, v is contiguous).  out is a
-// contiguous (B, H, D) buffer.  T is cut into n_split = ceil(T / piece)
-// pieces; where n_split > 1, part is f32 scratch of B * H * n_split *
-// (D + 2) and tickets B * K int32 zeros (left zero by every launch).
+// contiguous (B, H, D) buffer of q's dtype, or of float32 where lse is
+// not null: then a contiguous (B, H) float32 buffer.  T is cut
+// into n_split = ceil(T / piece) pieces; where n_split > 1, part is f32
+// scratch of B * H * n_split * (D + 2) and tickets B * K int32 zeros
+// (left zero by every launch).
 int flash_decode_launch(int dtype, int wide, const void* q, const void* k,
                         const void* v, const void* lengths, void* out,
-                        void* part, void* tickets, int B, int T_len, int H,
-                        int K, int D, int piece, int n_split,
-                        const int64_t* strides, void* stream) {
+                        void* lse, void* part, void* tickets,
+                        int B, int T_len, int H, int K, int D, int piece,
+                        int n_split, const int64_t* strides, void* stream) {
   if (B < 1 || B > 65535 || T_len < 1 || K < 1 || K > 65535 || H % K != 0
       || H / K > MAX_G || D < 1 || D > MAX_D || piece < 1
       || n_split != (T_len + piece - 1) / piece || n_split > MAX_SPLIT
@@ -438,6 +460,7 @@ int flash_decode_launch(int dtype, int wide, const void* q, const void* k,
   p.v = v;
   p.lengths = static_cast<const int32_t*>(lengths);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.part = static_cast<float*>(part);
   p.tickets = static_cast<int32_t*>(tickets);
   p.t_len = T_len;

@@ -44,7 +44,7 @@ def build() -> tuple[Path, str]:
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.flash_decode_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
 
@@ -143,15 +143,18 @@ def check_inputs(q, k, v, lengths) -> None:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, H, D); k, v: (B, T, K, D); lengths: (B,) int32 -> (B, H, D).
 
     Attends query head h to kv head h // (H/K) over t < lengths[b];
     lengths above T count as T, and a sequence with lengths[b] <= 0 gets a
-    zero output.  Output in q.dtype.  CUDA tensors only.  Calls on one
-    device share its workspace, so they must not overlap on two streams.
-    No backward: raises where autograd would record the call
-    (`build.refuse_grad`).
+    zero output.  Output in q.dtype.  `return_lse` returns instead the
+    output in float32 (the values before their rounding to q.dtype) and
+    the softmax state, (B, H) f32 lse = ln sum_t exp(s_t), -inf where
+    lengths[b] <= 0: what `ops.merge_decode` merges outputs over pieces
+    of T with.  CUDA tensors only.  Calls on one device share its
+    workspace, so they must not overlap on two streams.  No backward:
+    raises where autograd would record the call (`build.refuse_grad`).
     """
     check_inputs(q, k, v, lengths)
     _build.refuse_grad("flash_decode", q, k, v, lengths)
@@ -167,19 +170,23 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n_split > 1:
         ws = _scratch(dev, B * H * n_split * (D + 2), B * K)
         part, tickets = ws[0].data_ptr(), ws[1].data_ptr()
-    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, H, D), device=dev,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev) \
+        if return_lse else None
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
                                    *v.stride()[:3])
     with torch.cuda.device(dev):
         err = lib.flash_decode_launch(
             _DTYPE_CODE[q.dtype], wide_path(k, v), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part, tickets, B, T, H, K, D, piece, n_split, strides,
+            lse.data_ptr() if return_lse else None, part, tickets, B, T, H,
+            K, D, piece, n_split, strides,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed (code {err})")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

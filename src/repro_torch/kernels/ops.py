@@ -8,12 +8,13 @@ version on the card.
 
 DTensor arguments: each rank runs on its local shards (`on_shards`, a
 `local_map`) where the placements keep the work local: batch or (KV)
-heads sharded, the decode's T and the scans' S whole; the result is a
-DTensor placed as the query.  On the card that is the only way: any other
-placement raises NotImplementedError (a sequence-sharded KV needs a
-cross-rank merge of the pieces' softmax states, which no kernel here
-does).  The plain versions (the CPU, or impl="plain") run under DTensor's
-sharding propagation where the work is not local.
+heads sharded, the scans' S whole; the result is a DTensor placed as the
+query.  The decode's KV sequence T may be sharded too: each rank attends
+to its T-shard and keeps the softmax state with the output
+(`decode_piece`), the states are all-gathered over the mesh dimensions
+that shard T, and `merge_pieces` merges them (the kernel on the card, the
+plain version on the CPU or under impl="plain", alike).  Any other placement raises
+NotImplementedError, on the card and off it.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from typing import Optional
 
 import torch
 
-from ..models.common import (_is_dtensor, on_shards, replicated_like,
-                             shard_kinds)
+from ..models.common import (_is_dtensor, gather_states, on_shards,
+                             replicated_like, seq_dims, shard_kinds,
+                             shard_range, whole_where_seq)
 from . import flash_decode as _fd
 from . import flash_decode_int8 as _fd8
 from . import mamba_scan as _ms
@@ -45,13 +47,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV-scan."""
     plain = _plain(impl, q, "decode_attention")
     if _is_dtensor(q):
+        q = whole_where_seq(q, k)
         args = (q, k, v, replicated_like(lengths, q))
-        kv = {"batch": 0, "heads": 2}
+        kv = {"batch": 0, "heads": 2, "seq": 1}
         dims = ({"batch": 0, "heads": 1}, kv, kv, {"batch": 0})
-        if not plain or shard_kinds(args, dims)[1] is None:
-            return on_shards("flash_decode", _plain_decode if plain
-                             else _fd.flash_decode, args, dims, dims[:1])
-        q, k, v, lengths = args     # the plain version under propagation
+        seq = seq_dims(k) if shard_kinds(args, dims)[0] else []
+        if seq:
+            mesh, (t0, nt) = k.device_mesh, shard_range(k, 1)
+
+            def fn(*local):
+                piece = decode_piece(*local, t0, nt, impl=impl)
+                return merge_pieces(gather_states(piece, mesh, seq),
+                                    local[0].dtype)
+        else:
+            fn = _plain_decode if plain else _fd.flash_decode
+        return on_shards("flash_decode", fn, args, dims, dims[:1])
     if plain:
         return _plain_decode(q, k, v, lengths)
     return _fd.flash_decode(q, k, v, lengths)
@@ -60,6 +70,46 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _plain_decode(q, k, v, lengths):
     _fd.check_inputs(q, k, v, lengths)
     return flash_decode_ref(q, k, v, lengths).to(q.dtype)
+
+
+def decode_piece(q, k, v, lengths, t0: int, nt: int, *,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """One rank's share of a decode over a KV cache whose sequence is
+    sharded: k, v (B, nt, K, D) hold the keys [t0, t0 + nt), attended at
+    the local lengths clamp(lengths - t0, 0, nt).  Returns the f32 output
+    with the lse appended, (B, H, D + 1), what the ranks all-gather and
+    `merge_pieces` merges.  The kernel on the card, the plain version on
+    the CPU or under impl="plain"."""
+    lengths = (lengths - t0).clamp(0, nt)
+    if _plain(impl, q, "decode_attention"):
+        _fd.check_inputs(q, k, v, lengths)
+        out, lse = flash_decode_ref(q, k, v, lengths, return_lse=True)
+    else:
+        out, lse = _fd.flash_decode(q, k, v, lengths, return_lse=True)
+    return torch.cat([out, lse[..., None]], -1)
+
+
+def merge_pieces(states: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """R pieces' `decode_piece` results, (R, B, H, D + 1), merged into the
+    decode over their union, (B, H, D) in `dtype`."""
+    return merge_decode(states[..., :-1], states[..., -1]).to(dtype)
+
+
+def merge_decode(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Attention outputs over R disjoint pieces of the keys merged into the
+    output over their union: outs (R, ..., D), lses (R, ...) (each piece's
+    softmax state, as `flash_decode_ref(return_lse=True)` gives it: (R, B,
+    H, D) and (R, B, H) for decode) -> (..., D) f32.
+    w_r = exp(lse_r - max_r lse_r), out = sum_r w_r out_r / sum_r w_r; 0
+    where every lse is -inf (no piece attends to anything), as the plain
+    version's zero output."""
+    outs, lses = outs.float(), lses.float()
+    top = lses.amax(0)
+    w = torch.exp(lses - torch.where(torch.isfinite(top), top, 0.0))
+    den = w.sum(0)
+    num = (w[..., None] * outs).sum(0)
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp(min=1e-30)[..., None], 0.0)
 
 
 def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,

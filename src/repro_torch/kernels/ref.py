@@ -14,7 +14,7 @@ from ..models.common import replicated_like
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, return_lse: bool = False):
     """Decode GQA attention, direct softmax in f32.
 
     q: (B, H, D) one query per sequence; k, v: (B, T, K, D);
@@ -23,6 +23,9 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gets a zero output, as the CUDA kernel gives it.  (The JAX reference
     and the Pallas kernel instead average V over all T rows there; the
     model never asks, its lengths are min(pos + 1, T) >= 1.)
+    `return_lse` also returns the softmax state (B, H) f32, lse =
+    ln sum_{t < lengths} exp(s_t), -inf where lengths <= 0: what
+    `ops.merge_decode` needs to merge outputs over pieces of T.
     """
     B, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -34,8 +37,12 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~valid[:, None, None], -1e30)
     p = torch.softmax(s, dim=-1)
     p = p * valid.any(-1)[:, None, None, None]
-    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-    return out.reshape(B, H, D)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float()).reshape(B, H, D)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s.masked_fill(~valid[:, None, None], -math.inf),
+                          dim=-1)
+    return out, lse.reshape(B, H)
 
 
 def flash_decode_int8_ref(q: torch.Tensor, kq: torch.Tensor,

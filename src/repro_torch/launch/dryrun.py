@@ -27,8 +27,12 @@ Each pair writes one JSON (default directory build/port_dryrun/):
 Every repeat of the layer stack is traced, so nothing is undercounted:
 the reference's SCAN_UNROLL / _extrapolate (XLA counts a while-loop body
 once, so it compiled 1- and 2-repeat variants and extrapolated) have no
-twin.  The step allocates on no device by design (the twin of the
-reference's placeholder devices), so there is no --device.
+twin.  One exception keeps a 32K-token prefill tractable: the chunked
+attention (`models.attention._flash_attention`) runs identical work in
+every layer, and under no_grad it is traced once per signature and
+credited to the rest (`StepRecorder.memoized`; equal to the full trace,
+peak included).  The step allocates on no device by design (the twin of
+the reference's placeholder devices), so there is no --device.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
@@ -38,6 +42,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -52,6 +57,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..configs import get_config, list_archs
+from ..models import attention
 from ..models import model as M
 from ..models.common import set_mesh
 from ..training.optimizer import AdamW, AdamWState, tree_map
@@ -218,6 +224,17 @@ def mesh_label(mesh_shape) -> str:
     return "mesh" + "x".join(map(str, mesh_shape))
 
 
+@contextlib.contextmanager
+def _memoized_attention(rec):
+    """The chunked attention memoized by `rec` inside the block."""
+    real = attention._flash_attention
+    attention._flash_attention = rec.memoized(real)
+    try:
+        yield
+    finally:
+        attention._flash_attention = real
+
+
 def trace_pair(arch: str, shape_name: str, mesh, *, cfg=None,
                shape: Optional[InputShape] = None) -> dict:
     """Trace one pair's step on a live fake mesh; the result's numbers."""
@@ -228,7 +245,8 @@ def trace_pair(arch: str, shape_name: str, mesh, *, cfg=None,
         arg_storages = {_local(t).untyped_storage()._cdata for t in args}
         rec = hlo_analysis.StepRecorder()
         rec.exclude(step.args)
-        with set_mesh(mesh, **step.mesh_kwargs), rec:
+        with set_mesh(mesh, **step.mesh_kwargs), rec, _memoized_attention(
+                rec):
             out = step.fn(*step.args)
         outs = _tensors(out)
         aliased = _bytes([t for t in outs if _local(t).untyped_storage()
@@ -240,7 +258,7 @@ def trace_pair(arch: str, shape_name: str, mesh, *, cfg=None,
     return dict(
         bytes_per_device=dict(arguments=arg_bytes, outputs=_bytes(outs),
                               aliased=aliased, peak=peak),
-        fits_h100=peak <= H100_BYTES,
+        fits_h100=peak <= H100_BYTES, peak_set_by=rec.peak_at,
         cost=dict(flops=float(rec.flops),
                   bytes_accessed=float(rec.bytes_accessed)),
         roofline=terms.row(), collectives=coll)

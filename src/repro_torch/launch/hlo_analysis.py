@@ -19,10 +19,20 @@ and every collective DTensor issues for it.  It records:
   * live bytes: every local tensor an op makes counts until the last
     tensor on its storage dies (a storage autograd saves for backward
     counts until the graph lets it go), so `peak` is the most held at
-    once beside the step's arguments.
+    once beside the step's arguments, and `peak_at` names the op, shape
+    and dtype of the tensor whose allocation set it.
 
 DTensor's own shape propagation runs ops on fake global-shape tensors;
 those are not the rank's work and are left out.
+
+`StepRecorder.memoized(fn)` traces a function of local tensors once per
+signature (shapes, strides, dtypes and other arguments) under no_grad: a
+later call with the same signature is not run again, and its flops,
+bytes, collectives and rise in live bytes are credited from the first,
+its outputs fresh tensors of the first's layouts.  The dry run memoizes
+the chunked attention this way: identical in every layer, its chunk loop
+of thousands of pairs a layer would otherwise dominate a 32K-token
+prefill's trace.
 
 Roofline terms (H100 constants, `core.hardware.H100`):
   compute    = flops / peak bf16 FLOP/s     (989e12)
@@ -102,6 +112,7 @@ class StepRecorder(TorchDispatchMode):
         self.bytes_accessed = 0
         self.live = 0
         self.peak = 0
+        self.peak_at = ""       # the op, shape and dtype that set the peak
         self._refs: Dict[int, int] = {}
         self._size: Dict[int, int] = {}
         self._excluded: set = set()
@@ -132,7 +143,7 @@ class StepRecorder(TorchDispatchMode):
             del self._refs[key]
             self.live -= self._size.pop(key)
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str) -> None:
         key = t.untyped_storage()._cdata
         if key in self._excluded:
             return
@@ -140,9 +151,62 @@ class StepRecorder(TorchDispatchMode):
             self._refs[key] = 0
             self._size[key] = t.untyped_storage().nbytes()
             self.live += self._size[key]
-            self.peak = max(self.peak, self.live)
+            if self.live > self.peak:
+                self.peak = self.live
+                self.peak_at = f"{op} -> {tuple(t.shape)} {t.dtype}"
         self._refs[key] += 1
         weakref.finalize(t, self._release, key)
+
+    def memoized(self, fn):
+        """fn, traced once per signature of its arguments while grad is off
+        (see the module docstring); fn returns a tensor or a tuple of
+        them."""
+        seen = {}
+
+        def sig(a):
+            if isinstance(a, torch.Tensor):
+                return (tuple(a.shape), tuple(a.stride()), a.dtype,
+                        str(a.device))
+            return a
+
+        def layout(t):
+            return (t.untyped_storage().nbytes(), t.dtype, t.shape,
+                    t.stride(), t.storage_offset(), t.device)
+
+        def like(size, dtype, shape, stride, offset, device):
+            # a storage of the first call's output, allocated and tracked
+            return torch.empty(size // dtype.itemsize, dtype=dtype,
+                               device=device).as_strided(shape, stride,
+                                                         offset)
+
+        def call(*args, **kwargs):
+            if torch.is_grad_enabled():
+                return fn(*args, **kwargs)
+            key = (tuple(map(sig, args)),
+                   tuple(sorted((k, sig(v)) for k, v in kwargs.items())))
+            hit = seen.get(key)
+            if hit is None:
+                flops, nbytes, live, peak = (self.flops, self.bytes_accessed,
+                                             self.live, self.peak)
+                n_rec, self.peak, at = len(self.records), live, self.peak_at
+                out = fn(*args, **kwargs)
+                outs = out if isinstance(out, tuple) else (out,)
+                seen[key] = (self.flops - flops, self.bytes_accessed - nbytes,
+                             self.peak - live, self.peak_at,
+                             self.records[n_rec:], [layout(t) for t in outs],
+                             isinstance(out, tuple))
+                if peak >= self.peak:
+                    self.peak, self.peak_at = peak, at
+                return out
+            flops, nbytes, rise, rise_at, recs, layouts, many = hit
+            self.flops += flops
+            self.bytes_accessed += nbytes
+            self.records.extend(recs)
+            if self.live + rise > self.peak:
+                self.peak, self.peak_at = self.live + rise, rise_at
+            outs = tuple(like(*lay) for lay in layouts)
+            return outs if many else outs[0]
+        return call
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -168,7 +232,7 @@ class StepRecorder(TorchDispatchMode):
                    if isinstance(t, torch.Tensor)]
             self.bytes_accessed += sum(map(_nbytes, ins + outs))
         for t in outs:
-            self._track(t)
+            self._track(t, name)
         return out
 
 

@@ -2,8 +2,9 @@
 whisper's encoder self-attention and decoder cross-attention.
 
 The full-sequence paths are plain PyTorch, as the reference computes them
-in jnp outside any Pallas kernel: direct softmax with scores in f32,
-causal (banded for sliding-window attention, SWA) or not.  Decode goes
+in jnp outside any Pallas kernel: `flash_attention`, the reference's
+chunked online softmax with scores in f32 (512 x 512 a block), causal
+(banded for sliding-window attention, SWA) or not.  Decode goes
 through `kernels.ops.decode_attention`, the hand-written flash-decode
 kernel on the card.  SWA decode uses a ring-buffer KV cache of `window`
 slots.  Cross-attention reads encoder K/V that `encode_cross_kv` computes
@@ -13,16 +14,18 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from torch.utils.checkpoint import checkpoint
+
 from .common import (_is_dtensor, apply_rope, constrain, dense_init, dot,
-                     dtype_of, heads_spec, on_shards, replicated_like,
-                     rms_norm, roll, shard_kinds, shard_range)
+                     dtype_of, gather_states, heads_spec, on_shards, pad,
+                     rms_norm, roll, seq_dims, shard_kinds, shard_range,
+                     whole_where_seq)
 
 NEG_INF = -1e30
 
@@ -87,56 +90,185 @@ def _qkv(params, cfg, x, *, rope_positions=None):
     return q, k, v
 
 
-def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Direct-softmax GQA attention, scores in f32: the reference's
-    `flash_attention` without its chunking.
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    """Chunked online-softmax GQA attention, the reference's
+    `flash_attention`: scores in f32, one (q_chunk x kv_chunk) block of them
+    at a time.
 
     q: (B, S, H, D); k, v: (B, T, K, D) with H = K * G.  Query i sits at
-    position i and key t at position t; `causal` keeps t <= i, and
-    `window` > 0 further keeps t > i - window.  Returns (B, S, H, D) in
-    q.dtype.  DTensors whose batch or heads alone are sharded are attended
-    on each rank's shards (`on_shards`: the work is local, and DTensor's
-    propagation of the einsums over batch and heads sharded at once
-    fails); others go through DTensor's propagation.
+    position q_offset + i and key t at position t; `causal` keeps
+    t <= q_pos, and `window` > 0 further keeps t > q_pos - window.  q, k
+    and v are zero-padded to whole chunks and the pad keys masked.
+    Returns (B, S, H, D) in q.dtype.
+
+    A (q chunk, kv chunk) pair that the masks leave empty for every query
+    of the chunk is skipped, which is exact wherever every query has at
+    least one key (checked per q chunk; otherwise no pair of that chunk is
+    skipped): an empty chunk after a valid one leaves (m, l, acc) as they
+    are (p = 0, corr = 1), and an empty chunk before any valid one is
+    wiped by the first valid one (corr = exp(-1e30 - m) = 0).  That skips
+    the chunks above the causal diagonal and those wholly before a
+    sliding window.  A pair that no mask cuts is not masked.
+
+    Where autograd records the call, each q chunk is checkpointed
+    (`torch.utils.checkpoint`, as the reference's `jax.checkpoint`): the
+    backward recomputes its scores instead of keeping them.  DTensors
+    whose batch or heads alone are sharded are attended on each rank's
+    shards (`on_shards`).  Non-causal attention without a window over K/V
+    whose sequence is sharded too (decode's cross-attention over a cached
+    encoder K/V, which the rules shard so where its KV heads do not divide
+    `model`) attends each rank's piece of the keys, and the softmax
+    states, all-gathered over the mesh dimensions that shard them, are
+    merged (`ops.merge_pieces`); it records no gradient.  Any other
+    placement raises.
     """
-    fn = functools.partial(_direct_attention, causal=causal, window=window)
-    if _is_dtensor(q):
-        dims = ({"batch": 0, "heads": 2},) * 3
-        if shard_kinds((q, k, v), dims)[1] is None:
-            return on_shards("direct_attention", fn, (q, k, v), dims,
-                             dims[:1])
-    return fn(q, k, v)
+    kw = dict(causal=causal, window=window, q_offset=int(q_offset),
+              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if not _is_dtensor(q):
+        return _flash_attention(q, k, v, **kw)
+    q = whole_where_seq(q, k)
+    kv = {"batch": 0, "heads": 2, "seq": 1}
+    dims = ({"batch": 0, "heads": 2}, kv, kv)
+    seq = seq_dims(k) if shard_kinds((q, k, v), dims)[0] else []
+    if not seq:
+        return on_shards("flash_attention", functools.partial(
+            _flash_attention, **kw), (q, k, v), dims, dims[:1])
+    if causal or window or torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention merges over a sharded key sequence only"
+            " without masks and without gradients (cross-attention decode)")
+    mesh = k.device_mesh
+
+    def merged(q, k, v):
+        out, lse = _flash_attention(q, k, v, **kw, state=True)
+        both = gather_states(torch.cat([out, lse[..., None]], -1), mesh,
+                             seq)
+        return ops.merge_pieces(both, q.dtype)
+    return on_shards("flash_attention", merged, (q, k, v), dims, dims[:1])
 
 
-def _direct_attention(q, k, v, *, causal: bool, window: int):
+def _kv_chunks(a: int, b: int, *, kc: int, nk: int, T: int, causal: bool,
+               window: int) -> range:
+    """The kv chunks a q chunk whose real queries sit at positions a..b
+    attends to: all of them where a query has no key at all, else those
+    the masks leave non-empty for some query (see `flash_attention`)."""
+    def has_key(p):
+        lo = max(0, p - window + 1) if window else 0
+        return lo <= (min(T - 1, p) if causal else T - 1)
+
+    if not (has_key(a) and has_key(b)):     # the keyed queries: an interval
+        return range(nk)
+    lo = max(0, (a - window + 1) // kc) if window else 0
+    hi = min(nk, b // kc + 1) if causal else nk
+    return range(lo, hi)
+
+
+def _flash_attention(q, k, v, *, causal: bool, window: int, q_offset: int,
+                     q_chunk: int, kv_chunk: int, state: bool = False):
+    """`flash_attention` on plain tensors (each rank's shards; the dry run
+    traces it once per signature, `launch.dryrun`): (B, S, H, D) in
+    q.dtype, or with `state` the f32 output and its softmax state
+    lse = m + ln l (B, S, H), with which outputs over pieces of the keys
+    merge."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
-    qh = q.reshape(B, S, K, G, D).float()
-    s = torch.einsum("bskgd,btkd->bkgst", qh, k.float()) / math.sqrt(D)
-    if causal or window:
-        q_pos = torch.arange(S, device=q.device)[:, None]
-        k_pos = torch.arange(T, device=q.device)[None, :]
-        mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos <= q_pos
-        if window:
-            mask &= k_pos > q_pos - window
-        s = s.masked_fill(~replicated_like(mask, s), NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    qc, kc = min(q_chunk, S), min(kv_chunk, T)
+    nq, nk = -(-S // qc), -(-T // kc)
+    qs = pad(q, (0, 0, 0, 0, 0, nq * qc - S)).reshape(B, nq, qc, K, G, D)
+    # f32 K^T and V once, chunk-major, (B, K) folded into one batch
+    # dimension: (nk, B K, D, kc) and (nk, B K, kc, D)
+    kt = pad(k, (0, 0, 0, 0, 0, nk * kc - T)).float().reshape(
+        B, nk, kc, K, D).permute(1, 0, 3, 4, 2).reshape(nk, B * K, D, kc)
+    vt = pad(v, (0, 0, 0, 0, 0, nk * kc - T)).float().reshape(
+        B, nk, kc, K, D).permute(1, 0, 3, 2, 4).reshape(nk, B * K, kc, D)
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for qi in range(nq):
+        q0 = q_offset + qi * qc
+        chunks = _kv_chunks(q0, q_offset + min(S, (qi + 1) * qc) - 1, kc=kc,
+                            nk=nk, T=T, causal=causal, window=window)
+        fn = functools.partial(_q_chunk, q0=q0, chunks=chunks, kc=kc, T=T,
+                               causal=causal, window=window, scale=scale,
+                               state=state)
+        if record:
+            # nothing random inside: no RNG state to keep for the recompute
+            outs.append(checkpoint(fn, qs[:, qi], kt, vt,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(fn(qs[:, qi], kt, vt))
+    if state:
+        out, lse = (torch.cat(t, 1)[:, :S] for t in zip(*outs))
+        return out, lse
+    out = torch.cat(outs, 1) if nq > 1 else outs[0]
+    return out[:, :S].to(q.dtype)
 
 
-def attention_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
+def _q_chunk(q_blk, kt, vt, *, q0: int, chunks: range, kc: int, T: int,
+             causal: bool, window: int, scale: float, state: bool = False):
+    """One q chunk (B, qc, K, G, D) against kv chunks `chunks` of kt, vt
+    (`_flash_attention`'s layouts): the reference's online softmax, its
+    (B, K, G, qc) rows flattened to (B K, G qc); (B, qc, H, D) f32, and
+    with `state` lse (B, qc, H)."""
+    B, qc, K, G, D = q_blk.shape
+    dev = q_blk.device
+    qg = q_blk.float().permute(0, 2, 3, 1, 4).reshape(B * K, G * qc, D)
+    q_pos = torch.arange(q0, q0 + qc, device=dev)[:, None]
+    m = torch.full((B * K, G * qc, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B * K, G * qc, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B * K, G * qc, D), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    kts, vts = kt.unbind(0), vt.unbind(0)
+    for kj in chunks:
+        t0 = kj * kc
+        s = torch.baddbmm(zero, qg, kts[kj], beta=0, alpha=scale)
+        # the masks, where they cut this pair at all
+        if (causal and t0 + kc - 1 > q0) or t0 + kc > T \
+                or (window and t0 <= q0 + qc - 1 - window):
+            k_pos = torch.arange(t0, t0 + kc, device=dev)[None, :]
+            mask = k_pos < T
+            if causal:
+                mask = mask & (k_pos <= q_pos)
+            if window:
+                mask = mask & (k_pos > q_pos - window)
+            s = s.view(B * K, G, qc, kc).masked_fill(~mask, NEG_INF).view(
+                B * K, G * qc, kc)
+        # the running max only steadies the exponentials: the output does
+        # not depend on it, so no gradient flows through it (the backward
+        # then keeps p alone a pair, not s and acc too)
+        m_new = torch.maximum(m, s.detach().amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = torch.addcmul(p.sum(-1, keepdim=True), l, corr)
+        acc = torch.baddbmm(acc * corr, p, vts[kj])
+        m = m_new
+    out = (acc / l.clamp(min=1e-30)).view(B, K, G, qc, D)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, qc, K * G, D)
+    if not state:
+        return out
+    lse = (m + torch.log(l)).view(B, K, G, qc).permute(0, 3, 1, 2)
+    return out, lse.reshape(B, qc, K * G)
+
+
+def attention_full(params, cfg, x: torch.Tensor, *, positions=None,
+                   mode: str = "train",
                    ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence attention (train / prefill). Returns (y, cache|None)."""
+    """Full-sequence attention (train / prefill). Returns (y, cache|None).
+    `positions` (RoPE's, default 0..S-1) as in the reference; the mask
+    counts queries from 0 there too."""
     B, S, _ = x.shape
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    pos = torch.arange(S, device=x.device)
+    pos = positions if positions is not None \
+        else torch.arange(S, device=x.device)
     q, k, v = _qkv(params, cfg, h, rope_positions=pos)
-    out = direct_attention(q, k, v, window=cfg.swa_window)
+    out = flash_attention(q, k, v, causal=True, window=cfg.swa_window)
     y = _merge_heads(out, cfg.n_kv_heads) @ params["wo"]
     cache = None
     if mode == "prefill":
@@ -250,7 +382,7 @@ def encoder_attention(params, cfg, x: torch.Tensor) -> torch.Tensor:
     q = _split_heads(dot(h, params["wq"]), H, hd, K)
     k = _split_heads(dot(h, params["wk"]), K, hd, K)
     v = _split_heads(dot(h, params["wv"]), K, hd, K)
-    out = direct_attention(q, k, v, causal=False)
+    out = flash_attention(q, k, v, causal=False)
     return x + dot(_merge_heads(out, K), params["wo"])
 
 
@@ -264,7 +396,7 @@ def cross_attention_full(params, cfg, x: torch.Tensor,
     H, hd = cfg.n_heads, cfg.hd
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     q = _split_heads(h @ params["wq"], H, hd, cfg.n_kv_heads)
-    out = direct_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    out = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
     return x + _merge_heads(out, cfg.n_kv_heads) @ params["wo"]
 
 

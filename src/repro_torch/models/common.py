@@ -303,6 +303,42 @@ def shard_range(x, dim: int) -> Tuple[int, int]:
     return offset, size
 
 
+def seq_dims(kv) -> list:
+    """The mesh dimensions (of more than one rank) that shard a DTensor
+    K/V cache's sequence, dimension 1."""
+    mesh = kv.device_mesh
+    return [m for m, p in enumerate(kv.placements)
+            if p.is_shard(1) and mesh.size(m) > 1]
+
+
+def whole_where_seq(q, kv):
+    """q (a DTensor) made whole on the mesh dimensions that shard kv's
+    sequence: each rank there attends its piece of the sequence with every
+    query head of its batch rows (the reference's rules shard the KV
+    sequence where the KV heads do not divide `model`, and q's heads then
+    lie whole there already)."""
+    from torch.distributed.tensor import Replicate
+    dims = seq_dims(kv)
+    pl = tuple(Replicate() if m in dims else p
+               for m, p in enumerate(q.placements))
+    return q if pl == tuple(q.placements) else q.redistribute(
+        q.device_mesh, pl)
+
+
+def gather_states(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """x (a rank's local tensor) all-gathered along a new leading
+    dimension over mesh dimensions `dims` (functional collectives on their
+    groups): (R, *x.shape), R the ranks of those dimensions, in rank
+    order on every rank."""
+    import torch.distributed._functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    x = x[None]
+    for m in dims:
+        x = gather(x, 0, (mesh, m))
+    return x.wait() if hasattr(x, "wait") else x     # AsyncCollectiveTensor
+
+
 def shard_kinds(args: Sequence, dims: Sequence):
     """How DTensor `args` are sharded, for a computation that is local
     only over some of their dimensions.  dims[i] names argument i's
@@ -344,7 +380,9 @@ def on_shards(name: str, fn, args: Sequence, dims: Sequence,
     replicated where others are sharded are cut to their shard (a local
     slice).  Raises NotImplementedError where `shard_kinds` finds the
     work not local: a shard of a dimension the computation reduces over
-    needs a cross-rank merge."""
+    needs a cross-rank merge, which only attention over a KV sequence
+    declares (the sequence as a kind of its own: `kernels.ops.
+    decode_attention`, `models.attention.flash_attention`)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     kinds, reason = shard_kinds(args, dims)
@@ -352,7 +390,8 @@ def on_shards(name: str, fn, args: Sequence, dims: Sequence,
         raise NotImplementedError(
             f"{name}: {reason}; it runs on local shards only where batch or"
             f" heads (or width) are sharded and the dimension it reduces over"
-            f" is whole (a sharded sequence needs a cross-rank merge)")
+            f" is whole (a sharded sequence needs a cross-rank merge, which"
+            f" only attention over a KV sequence has)")
     mesh = args[0].device_mesh
 
     def placements(d, keep=None):

@@ -12,6 +12,10 @@ on codes and scales from `quantize_kv` (which is also held bit-equal to
 its CPU result); two runs bit-identical, the tickets left at 0, and a
 CUDA-graph replay equal to the eager call; bf16 flash_decode bit-identical
 to another checkout's kernel (REPRO_PARENT_CHECKOUT; skips without it);
+flash_decode's softmax state (return_lse) against the plain version's,
+the f32 output that comes with it rounded to the default output, and the
+kernel over T-pieces of one cache, merged (a sequence-sharded cache),
+against the unsliced kernel;
 mamba_scan
 and wkv6 at the JAX sweep shapes and the full-width prefill shapes
 (zamba2: nh 80, hd = ds = 64; rwkv6: H 32, hd 64), y and final state, at
@@ -60,7 +64,6 @@ an H100: `PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py`
 parent comparison).
 This file imports no jax, so it runs where only PyTorch is installed.
 """
-import ctypes
 import dataclasses
 import json
 import math
@@ -100,9 +103,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "tools"), str(ROOT)]
 import port_fleet_bench as PFB  # noqa: E402
 from chip_smoke import (CHUNK_SCANS, LOGIT_REL_BOUND,  # noqa: E402
-                        SSM_TRAIN_BATCH, TRAIN_BATCH, chunk_scan_case,
-                        chunk_scan_diffs, fleet_parity, rel_rows,
-                        scan_with_grads, sizing_diffs, step_diffs, step_on)
+                        LSE_TOL, SSM_TRAIN_BATCH, TRAIN_BATCH,
+                        chunk_scan_case, chunk_scan_diffs, fleet_parity,
+                        rel_rows, scan_with_grads, sizing_diffs,
+                        sliced_decode, step_diffs, step_on)
 
 pytestmark = pytest.mark.cuda
 # float32: the JAX package's tolerance.  bfloat16: the kernel and the plain
@@ -279,6 +283,54 @@ def test_flash_decode_zero_length_on_card(gen, dtype):
     torch.testing.assert_close(out.float(), ref, **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,D,T,lengths", [
+    (3, 8, 2, 64, 300, [0, 257, -1]), (16, 32, 8, 128, 256, None),
+    (4, 32, 8, 128, 1024, None), (16, 32, 8, 128, 8192, None),
+    (4, 32, 32, 80, 1024, None), (2, 56, 8, 128, 2916, None)])
+def test_flash_decode_lse_matches_plain_on_card(gen, B, H, K, D, T, lengths,
+                                                dtype):
+    """return_lse: the softmax state within LSE_TOL of the plain version's
+    (-inf where lengths <= 0), in one-piece and merged sequences; the f32
+    output that comes with it the default output's values before their
+    rounding to q's dtype (bit-identical where that is float32)."""
+    args = _fd_inputs(gen, B, H, K, D, T, dtype, lengths)
+    out = flash_decode(*args)
+    out32, lse = flash_decode(*args, return_lse=True)
+    _, want = flash_decode_ref(*args, return_lse=True)
+    torch.cuda.synchronize()
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(dtype), out)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    torch.testing.assert_close(lse, want, **LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("B,H,K,D,T", [(16, 32, 8, 128, 256),
+                                       (4, 32, 8, 128, 1024),
+                                       (4, 32, 8, 128, 8192),
+                                       (3, 8, 2, 64, 300)])
+def test_flash_decode_t_slices_merge_on_card(gen, B, H, K, D, T, R, dtype):
+    """The kernel over R T-pieces of one cache through ops.decode_piece,
+    the states merged by ops.merge_pieces (chip_smoke.py's
+    `sliced_decode`, what ranks of a sequence-sharded cache compute),
+    within TOL of the unsliced kernel and of the plain version; pieces a
+    short sequence leaves empty, and a sequence of length 0, included; one
+    launch a piece."""
+    lengths = [T, 1, T // 4 - 1] + [T // 2 + 1] * (B - 3)
+    lengths[-1] = 0
+    q, k, v, lengths = _fd_inputs(gen, B, H, K, D, T, dtype, lengths)
+    whole = flash_decode(q, k, v, lengths)
+    before = flash_decode.launches
+    merged = sliced_decode(q, k, v, lengths, R)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + R
+    assert merged.dtype == dtype and not bool(merged[-1].any())
+    torch.testing.assert_close(merged.float(), whole.float(), **TOL[dtype])
+    torch.testing.assert_close(merged.float(), flash_decode_ref(
+        q, k, v, lengths), **TOL[dtype])
+
+
 def _int8_inputs(gen, B, H, K, D, T, dtype):
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, T, K, D, generator=gen, device="cuda")
@@ -361,41 +413,60 @@ def test_flash_decode_int8_bits_tickets_and_graph_replay_on_card(
     assert tickets is None or not bool(FD._workspace[0][1].any())
 
 
-def _parent_flash_decode_lib():
-    """The bf16 kernel of another checkout (its root in the environment
-    variable REPRO_PARENT_CHECKOUT), built with this checkout's flags."""
+PARENT_SHAPES = [(16, 32, 8, 128, 256), (4, 32, 8, 128, 1024),
+                 (16, 32, 32, 80, 256), (4, 32, 32, 80, 1024),
+                 (16, 32, 8, 128, 8192)]
+# the parent's own wrapper and kernel, run in a process of its own on
+# inputs saved by this one: its outputs saved back
+_PARENT_RUN = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels.flash_decode import flash_decode
+ins = torch.load(sys.argv[2])
+outs = {key: flash_decode(*[t.cuda() for t in args]).cpu()
+        for key, args in ins.items()}
+torch.save(outs, sys.argv[3])
+"""
+
+
+@pytest.fixture(scope="module")
+def parent_outputs(tmp_path_factory):
+    """bf16 and f32 flash_decode of another checkout (its root in the
+    environment variable REPRO_PARENT_CHECKOUT), through that checkout's
+    own wrapper, at PARENT_SHAPES: {(shape, dtype name): (inputs, out)}."""
     root = os.environ.get("REPRO_PARENT_CHECKOUT")
     if not root:
         pytest.skip("set REPRO_PARENT_CHECKOUT to another checkout's root")
-    src = Path(root) / "src" / "repro_torch" / "csrc" / "flash_decode.cu"
-    lib = build.BUILD_DIR / "parent_flash_decode.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True)
-    parent = ctypes.CDLL(str(lib))
-    FD._configure(parent)
-    return parent
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ins = {(shape, str(dtype)): [t.cpu() for t in _fd_inputs(g, *shape,
+                                                              dtype)]
+           for shape in PARENT_SHAPES
+           for dtype in (torch.float32, torch.bfloat16)}
+    d = tmp_path_factory.mktemp("parent")
+    torch.save(ins, d / "in.pt")
+    subprocess.run([sys.executable, "-c", _PARENT_RUN,
+                    str(Path(root) / "src"), str(d / "in.pt"),
+                    str(d / "out.pt")], check=True)
+    outs = torch.load(d / "out.pt")
+    return {key: (ins[key], outs[key]) for key in ins}
 
 
-@pytest.mark.parametrize("B,H,K,D,T", [
-    (16, 32, 8, 128, 256), (4, 32, 8, 128, 1024), (16, 32, 32, 80, 256),
-    (4, 32, 32, 80, 1024), (16, 32, 8, 128, 8192)])
-def test_flash_decode_bits_equal_parent_checkout_on_card(gen, B, H, K, D, T):
-    """decode_common.cuh now holds what both decode kernels share: the bf16
-    kernel's outputs stay bit-identical to another checkout's kernel at the
-    serve shapes (and one multi-piece shape), in both dtypes."""
-    parent = _parent_flash_decode_lib()
-    ours = build.load(FD.SOURCE, FD._configure)
+@pytest.mark.parametrize("B,H,K,D,T", PARENT_SHAPES)
+def test_flash_decode_bits_equal_parent_checkout_on_card(parent_outputs, B,
+                                                         H, K, D, T):
+    """decode_common.cuh holds what both decode kernels share: the kernel's
+    outputs stay bit-identical to another checkout's kernel (run through
+    its own wrapper) at the serve shapes and one multi-piece shape, in both
+    dtypes; with the softmax state asked for, the f32 output rounded to
+    the dtype."""
     for dtype in (torch.float32, torch.bfloat16):
-        args = _fd_inputs(gen, B, H, K, D, T, dtype)
-        a = flash_decode(*args)
-        build._loaded[FD.SOURCE] = parent
-        try:
-            b = flash_decode(*args)
-        finally:
-            build._loaded[FD.SOURCE] = ours
-        torch.cuda.synchronize()
-        assert torch.equal(a, b)
+        args, want = parent_outputs[((B, H, K, D, T), str(dtype))]
+        args = [t.cuda() for t in args]
+        out, _ = flash_decode(*args, return_lse=True)
+        assert torch.equal(flash_decode(*args).cpu(), want)
+        assert torch.equal(out.to(dtype).cpu(), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1037,8 +1108,12 @@ def test_dtensor_prefill_bit_equal_on_card(gen, one_rank_mesh):
 def test_dtensor_kernels_refuse_split_reductions_on_card(gen):
     """On a fake 2-rank mesh over CUDA shards: flash_decode on a
     batch-sharded DTensor runs the kernel on each rank's shard (equal to
-    the plain version on it); a KV sequence or a scan sequence split over
-    ranks raises NotImplementedError and launches nothing."""
+    the plain version on it); on a KV cache whose sequence is split over
+    the ranks it runs the kernel on the rank's T-shard and merges the
+    gathered softmax states (the fake group's all-gather copies rank 0's
+    state to every slot, so the whole cache it stands for is rank 0's
+    shard twice: the plain version on that cache); a scan sequence split
+    over ranks raises NotImplementedError and launches nothing."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -1058,13 +1133,19 @@ def test_dtensor_kernels_refuse_split_reductions_on_card(gen):
         assert tuple(out.placements) == (Shard(0),)
         torch.testing.assert_close(out.to_local(), flash_decode_ref(
             q, k, v, lengths), atol=2e-5, rtol=1e-2)
-        kseq = DTensor.from_local(k[:, :T // 2], mesh, [Shard(1)],
-                                  run_check=False)
+        kseq, vseq = (DTensor.from_local(t[:, :T // 2], mesh, [Shard(1)],
+                                         run_check=False) for t in (k, v))
+        lengths = torch.tensor([T, 7], dtype=torch.int32, device="cuda")
         rep = [DTensor.from_local(t, mesh, [Replicate()], run_check=False)
                for t in (q, lengths)]
         before = flash_decode.launches
-        with pytest.raises(NotImplementedError, match="cross-rank merge"):
-            ops.decode_attention(rep[0], kseq, kseq, rep[1])
+        out = ops.decode_attention(rep[0], kseq, vseq, rep[1])
+        assert flash_decode.launches == before + 1
+        assert tuple(out.placements) == (Replicate(),)
+        whole = [torch.cat([t[:, :T // 2]] * 2, 1) for t in (k, v)]
+        torch.testing.assert_close(out.to_local(), flash_decode_ref(
+            q, *whole, lengths), atol=2e-5, rtol=1e-2)
+        before = flash_decode.launches
         xt = DTensor.from_local(torch.randn(1, 16, 2, 8, device="cuda"),
                                 mesh, [Shard(1)], run_check=False)
         bm = DTensor.from_local(torch.randn(1, 16, 8, device="cuda"), mesh,

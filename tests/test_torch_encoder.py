@@ -5,7 +5,7 @@ cross-attention, llava-next-34b's patch-prefixed decoder.
 Weights come from the reference's `init_params` through `convert_params`;
 inputs are numpy, seeded.  Tolerances:
 
-  * ATTN_ATOL = 2e-5: the port's direct-softmax attention against the
+  * ATTN_ATOL = 2e-5: the port's `flash_attention` against the
     reference's chunked `flash_attention` in float32, the reference's own
     bound (tests/models/test_attention.py); bfloat16 q/k/v at BF16_ATOL =
     3e-2 against float32 attention, its bfloat16 test's bound;
@@ -94,7 +94,7 @@ def test_non_causal_cross():
     v = rng.standard_normal((1, 50, 4, 16)).astype(np.float32)
     ref = JA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              causal=False)
-    out = A.direct_attention(torch.as_tensor(q), torch.as_tensor(k),
+    out = A.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
                              torch.as_tensor(v), causal=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATTN_ATOL,
                                rtol=0)
@@ -115,7 +115,7 @@ def test_attention_matches_flash_attention(B, S, T, K, G, D, causal):
     v = rng.standard_normal((B, T, K, D)).astype(np.float32)
     ref = JA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              causal=causal)
-    out = A.direct_attention(torch.as_tensor(q), torch.as_tensor(k),
+    out = A.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
                              torch.as_tensor(v), causal=causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATTN_ATOL,
                                rtol=0)
@@ -125,7 +125,7 @@ def test_bfloat16_non_causal():
     rng = np.random.default_rng(2)
     q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
                for shape in ((2, 24, 8, 32), (2, 96, 4, 32), (2, 96, 4, 32)))
-    out = A.direct_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+    out = A.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
                              causal=False)
     ref = JA.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                              causal=False)

@@ -8,7 +8,10 @@ weights, distributes them by the rules and runs:
 
   * yi-6b: one decode step on a random cache under the serve rules (batch
     on `data`, heads, KV heads and the cache's heads on `model`), at
-    ragged positions;
+    ragged positions; and once more with the cache placed (None, "data",
+    "model", None, None), its sequence on `model` as the rules place it
+    where the KV heads do not divide `model`: each rank attends to its
+    half of the sequence and the softmax states are merged across ranks;
   * granite-moe-1b-a400m and zamba2-2.7b (one repeat): the loss and every
     gradient leaf under the train rules (pure data parallelism: the batch
     over both axes; four MoE dispatch groups; the chunk scans on each
@@ -27,6 +30,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.sharding import (batch_specs, cache_specs,
                                          distribute, param_specs, pure_dp)
@@ -48,7 +52,7 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
 
 
-def _decode(mesh):
+def _decode(mesh, seq_on_model=False):
     cfg = get_config("yi-6b").reduced()
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     B, T = 4, 16
@@ -64,14 +68,21 @@ def _decode(mesh):
     want, want_cache = M.decode_step(params, cfg, tokens, want_cache, pos)
     dparams = distribute(params, param_specs(cfg, params, mesh,
                                              mode="serve"), mesh)
-    dcache = distribute(cache, cache_specs(cfg, cache, mesh, batch=B), mesh)
+    specs = cache_specs(cfg, cache, mesh, batch=B)
+    if seq_on_model:
+        specs = {n: {k: (None, "data", "model", None, None) for k in blk}
+                 for n, blk in specs.items()}
+    dcache = distribute(cache, specs, mesh)
     dtok = distribute(tokens, batch_specs(mesh, B) + (None,), mesh)
     with set_mesh(mesh):
         got, dcache = M.decode_step(dparams, cfg, dtok, dcache, pos)
-    errs = {"decode logits": _rel(got, want)}
+    tag = "decode (KV sequence on model)" if seq_on_model else "decode"
+    errs = {f"{tag} logits": _rel(got, want)}
     for n, blk in dcache.items():
         for k, t in blk.items():
-            errs[f"decode cache {n}/{k}"] = _rel(t, want_cache[n][k])
+            if seq_on_model:
+                assert t.placements[1].is_shard(2), t.placements
+            errs[f"{tag} cache {n}/{k}"] = _rel(t, want_cache[n][k])
     return errs
 
 
@@ -101,12 +112,23 @@ def _worker(rank, port, out):
     torch.set_num_threads(1)        # four processes share the host's cores
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=WORLD, rank=rank)
+    merges = []
+    real = ops.gather_states
+
+    def counted(x, mesh, dims):
+        merges.append(list(dims))   # the mesh dimensions that shard T
+        return real(x, mesh, dims)
+
     try:
         mesh = make_local_mesh(model=2, data=2, device="cpu")
-        errs = {**_decode(mesh), **_train(mesh, "granite-moe-1b-a400m"),
-                **_train(mesh, "zamba2-2.7b", 1)}
+        errs = _decode(mesh)
+        ops.gather_states = counted
+        errs.update(_decode(mesh, seq_on_model=True))
+        ops.gather_states = real
+        errs.update({**_train(mesh, "granite-moe-1b-a400m"),
+                     **_train(mesh, "zamba2-2.7b", 1)})
         if rank == 0:
-            torch.save(errs, out)
+            torch.save({"errs": errs, "merges": merges}, out)
     finally:
         dist.destroy_process_group()
 
@@ -130,7 +152,11 @@ def test_sharded_steps_match_unsharded(tmp_path):
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
-    errs = torch.load(out)
+    saved = torch.load(out)
+    errs = saved["errs"]
+    # every attention block of the sequence-sharded decode merged over
+    # `model` (mesh dimension 1)
+    assert saved["merges"] == [[1]] * 2
     assert len(errs) > 10
     bad = {k: v for k, v in errs.items() if not v <= TOL}
     assert not bad, bad

@@ -21,7 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / f"{name}.py" for name in (
         "port_fleet_bench", "port_paper_tables", "port_trace_report",
-        "port_roofline_report", "port_opt_vs_baseline")]
+        "port_roofline_report", "port_opt_vs_baseline",
+        "dryrun_peak_tensor", "compare_prefill")]
 
 
 def _imported_roots(path):

@@ -276,11 +276,14 @@ def _tile(m, l, acc, s, v):
     return m_new, l * corr + p.sum(-1), acc * corr[:, None] + p @ v
 
 
-def _emulate_kernel(q, k, v, lengths, n_sm, warps=4, row_steps=4):
+def _emulate_kernel(q, k, v, lengths, n_sm, warps=4, row_steps=4,
+                    with_lse=False):
     """The kernel's arithmetic in plain PyTorch, f32: `plan`'s pieces, each
     a block of `warps` warps (`_piece_state`); q scaled by
     log2(e) / sqrt(D); a sequence of one piece written directly, else its
-    pieces merged online in piece order."""
+    pieces merged online in piece order; `with_lse` also gives the lse the
+    kernel writes, (m + log2 l) ln 2 of the whole length (-inf where it is
+    0)."""
     B, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -288,6 +291,7 @@ def _emulate_kernel(q, k, v, lengths, n_sm, warps=4, row_steps=4):
     R = row_steps * (32 // _lanes_per_row(-(-D // vec)))
     piece, _ = FD.plan(B, K, T, n_sm)
     out = torch.zeros(B, H, D)
+    lse = torch.full((B, H), -math.inf)
     scale = math.log2(math.e) / math.sqrt(D)
     for b in range(B):
         n = min(max(int(lengths[b]), 0), T)
@@ -298,9 +302,10 @@ def _emulate_kernel(q, k, v, lengths, n_sm, warps=4, row_steps=4):
                                   warps)
                      for c0 in range(0, n, piece)]
             if parts:
-                _, l, acc = _online(parts)
+                m, l, acc = _online(parts)
                 out[b, heads] = acc / l[:, None]
-    return out
+                lse[b, heads] = (m + torch.log2(l)) * math.log(2.0)
+    return (out, lse) if with_lse else out
 
 
 EDGES = [(B, H, K, D, T) for B, H, K, D in [(3, 8, 4, 64), (3, 4, 1, 32)]
@@ -323,3 +328,121 @@ def test_piece_and_merge_arithmetic_matches_plain(B, H, K, D, T):
                                atol=2e-5, rtol=1e-2)
     if T > piece:
         assert n_split > 1 and int(lengths.max()) > piece
+
+
+# ---- the softmax state and the merge over pieces of T (a KV cache whose
+# sequence is sharded over ranks) ------------------------------------------
+
+def _lse_numpy(q, k, lengths):
+    """ln sum_{t < lengths} exp(q . k_t / sqrt(D)) in float64, -inf where
+    lengths <= 0: (B, H)."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    s = np.einsum("bkgd,btkd->bkgt", q.reshape(B, K, H // K, D)
+                  .astype(np.float64), k.astype(np.float64)) / math.sqrt(D)
+    out = np.full((B, K, H // K), -np.inf)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), k.shape[1])
+        if n:
+            row = s[b, ..., :n]
+            top = row.max(-1)
+            out[b] = top + np.log(np.exp(row - top[..., None]).sum(-1))
+    return out.reshape(B, H)
+
+
+@pytest.mark.parametrize("B,H,K,D,T",
+                         [s[:5] for s in SWEEP] + [(3, 4, 2, 8, 9)])
+def test_plain_lse_matches_numpy_logsumexp(B, H, K, D, T):
+    """flash_decode_ref(return_lse=True): the output unchanged, lse the
+    float64 logsumexp over the valid rows at f32 precision, -inf (and a
+    zero output) where lengths <= 0."""
+    q, k, v, lengths = _inputs(B, H, K, D, T, "float32", seed=T + 3)
+    if T == 9:
+        lengths = np.array([0, 5, -2], np.int32)
+    args = _port(q, k, v, lengths, "float32")
+    out, lse = flash_decode_ref(*args, return_lse=True)
+    assert torch.equal(out, flash_decode_ref(*args))
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    np.testing.assert_allclose(lse.numpy(), _lse_numpy(q, k, lengths),
+                               atol=1e-5, rtol=1e-6)
+
+
+def test_emulated_kernel_lse_matches_plain():
+    """The kernel's base-2 state turned into lse, (m + log2 l) ln 2, in the
+    emulation of its pieces and merges, against the plain lse: one- and
+    many-piece sequences and an empty one."""
+    q, k, v, lengths = _port(*_inputs(3, 8, 4, 64, 300, "float32", seed=4),
+                             "float32")
+    lengths = torch.tensor([300, 40, 0], dtype=torch.int32)
+    out, lse = _emulate_kernel(q, k, v, lengths, 132, with_lse=True)
+    want, want_lse = flash_decode_ref(q, k, v, lengths, return_lse=True)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+
+
+def _slices(T, R):
+    """R slices [t0, t1) covering [0, T), the last ones past short
+    sequences' lengths."""
+    cuts = [T * i // R for i in range(R + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 4])
+def test_merge_decode_over_t_slices_matches_unsliced(R):
+    """The plain version over R T-slices of one cache, each at local
+    lengths clamp(lengths - t0, 0, nt), merged by `ops.merge_decode`,
+    equals it over the whole cache: slices that a short sequence leaves
+    empty (lse -inf) drop out, and a sequence of length 0 stays 0."""
+    B, H, K, D, T = 6, 8, 2, 16, 64
+    q, k, v, lengths = _port(*_inputs(B, H, K, D, T, "float32", seed=R),
+                             "float32")
+    lengths = torch.tensor([64, 1, 17, 33, 0, 48], dtype=torch.int32)
+    outs, lses = [], []
+    for t0, t1 in _slices(T, R):
+        o, l = flash_decode_ref(q, k[:, t0:t1], v[:, t0:t1],
+                                (lengths - t0).clamp(0, t1 - t0),
+                                return_lse=True)
+        outs.append(o)
+        lses.append(l)
+    got = ops.merge_decode(torch.stack(outs), torch.stack(lses))
+    torch.testing.assert_close(got, flash_decode_ref(q, k, v, lengths),
+                               atol=1e-6, rtol=0)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+    if R > 1:
+        assert bool(torch.isinf(torch.stack(lses)[-1, 1]).all())
+
+
+def test_sequence_sharded_decode_merges_on_a_fake_mesh():
+    """ops.decode_attention on a KV cache sharded along T over a fake
+    2-rank mesh: each rank attends to its shard and the states are
+    all-gathered and merged.  The fake group's all-gather copies rank 0's
+    state to every slot, so the whole cache it stands for is rank 0's
+    shard twice; the result, placed as the query, equals the plain
+    version on that cache.  Batch or heads sharded the same way still run
+    on local shards, and a sharded head_dim is refused."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    B, H, K, D, T = 3, 8, 2, 16, 24
+    q, k, v, lengths = _port(*_inputs(B, H, K, D, T, "float32", seed=9),
+                             "float32")
+    lengths = torch.tensor([24, 5, 0], dtype=torch.int32)
+    dist.init_process_group("fake", store=FakeStore(), world_size=2, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
+        rep = [DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+               for t in (q, lengths)]
+        kseq, vseq = (DTensor.from_local(t[:, :T // 2], mesh, [Shard(1)],
+                                         run_check=False) for t in (k, v))
+        out = ops.decode_attention(rep[0], kseq, vseq, rep[1])
+        assert tuple(out.placements) == (Replicate(),)
+        whole = [torch.cat([t[:, :T // 2]] * 2, 1) for t in (k, v)]
+        torch.testing.assert_close(out.to_local(), flash_decode_ref(
+            q, *whole, lengths), atol=1e-6, rtol=0)
+        kd = DTensor.from_local(k[..., :D // 2], mesh, [Shard(3)],
+                                run_check=False)
+        with pytest.raises(NotImplementedError, match="cross-rank merge"):
+            ops.decode_attention(rep[0], kd, kd, rep[1])
+    finally:
+        dist.destroy_process_group()
