@@ -308,7 +308,14 @@ Phases, in order; any failure exits non-zero:
               `cache_specs`: logits, caches and states bit-equal, the same
               flash_decode / mamba_scan launches in each (counts set to 0
               before each step, read after), twice (cold, warm), the walls
-              printed side by side (DTensor's host cost);
+              printed side by side (DTensor's host cost); then one
+              train step (`loss_and_grads`) of llama31-8b at full width
+              and DIST_TRAIN's depth and batch, once on plain tensors and
+              once on DTensors placed by `param_specs(mode="train")` /
+              `batch_specs` (the loss through the vocab-parallel
+              cross-entropy, `models/model.py` `_VocabParallelCE`): the
+              loss and every gradient leaf bit-equal (deterministic
+              algorithms on for the two steps), no kernel launched;
               16c on the card, llama31-8b's decode at the short and long
               pools' shapes (SEQ_SHAPES, bf16) with its cache cut into 2
               and 4 T-pieces, as ranks hold a sequence-sharded cache: each
@@ -320,6 +327,12 @@ Phases, in order; any failure exits non-zero:
               sequence leaves empty; exactly one launch a piece (counts
               set to 0 just before, read just after); eager ms beside the
               unsliced call's;
+  17. examples  examples/port_serve_demo.py and examples/port_train_demo.py
+              (the twins of the reference's serve_demo.py / train_demo.py,
+              which wrap `python -m repro_torch.launch.{serve,train}` with
+              the reference's default arguments) run as subprocesses on
+              the card: each must exit 0 within EXAMPLE_TIMEOUT s; their
+              last lines and walls are printed;
 then one JSON line of kernel numbers (times averaged over the serve
 paths' shapes, weighted by their launches at each, flash_decode's and the
 scans' also as device_ms, flash_decode's library_device_ms; prefill walls
@@ -626,6 +639,10 @@ DIST_WORKERS = 4                        # host processes tracing 16a's pairs
 DIST_FAULT = ((1000, 64), ("model", None))   # 1000 % 16 != 0
 DIST_DECODE = ("llama31-8b", MOE_ARCH)  # one decode step each, 16 x 256
 DIST_PROMPT = 1015                      # zamba2's prefill, as phase 7's
+DIST_TRAIN = dict(arch="llama31-8b", n_repeat=2, batch=2, seq=512)
+# phase 17: the examples/ twins that run on the card
+EXAMPLES = ("port_serve_demo", "port_train_demo")
+EXAMPLE_TIMEOUT = 300
 # 16c: llama31-8b's decode in the pools phase 3 checks (G = 4, D = 128,
 # bf16), its cache cut into SEQ_SLICES pieces of T as ranks would hold a
 # sequence-sharded cache; the first sequences' lengths leave pieces empty
@@ -3492,6 +3509,51 @@ def dist_prefill(mesh):
     return rows[1]
 
 
+def dist_train(mesh):
+    """16b: one train step of llama31-8b at full width (DIST_TRAIN's
+    depth and batch) on plain tensors and on DTensors placed by the train
+    rules; the loss and every gradient leaf bit-equal, no kernel
+    launched."""
+    cfg = dataclasses.replace(get_config(DIST_TRAIN["arch"]),
+                              n_repeat=DIST_TRAIN["n_repeat"])
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        18), DEVICE)
+    B, S = DIST_TRAIN["batch"], DIST_TRAIN["seq"]
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g,
+                              device=DEVICE) for k in ("tokens", "labels")}
+    batch["labels"][0, :7] = -1                # ignored targets too
+    dparams = distribute(params, param_specs(cfg, params, mesh), mesh)
+    dbatch = {k: distribute(v, batch_specs(mesh, B) + (None,), mesh)
+              for k, v in batch.items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (loss, grads), plain_ms, plain_n = _timed(
+            lambda: loss_and_grads(params, cfg, batch))
+        with set_mesh(mesh):
+            (dloss, dgrads), dt_ms, dt_n = _timed(
+                lambda: loss_and_grads(dparams, cfg, dbatch))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = list(zip(tree_leaves(dgrads), tree_leaves(grads)))
+    equal = [torch.equal(_full(a), b) for a, b in pairs]
+    diff = max(float((_full(a).float() - b.float()).abs().max())
+               for a, b in pairs)
+    log(f"  16b {cfg.name} train step, {cfg.n_repeat} repeats, {B} x {S}:"
+        f" loss plain {float(loss):.6f} / DTensor {float(_full(dloss)):.6f}"
+        f" bit-equal {torch.equal(_full(dloss), loss)}; {sum(equal)} of"
+        f" {len(equal)} gradient leaves bit-equal (max|diff| {diff:.3e});"
+        f" launches {dt_n}; wall plain / DTensor {plain_ms:.1f} /"
+        f" {dt_ms:.1f} ms")
+    if not torch.equal(_full(dloss), loss) or not all(equal) \
+            or any(plain_n.values()) or any(dt_n.values()):
+        raise SystemExit(f"16b: {cfg.name}'s train step on DTensors is not"
+                         f" the plain one's (launches {dt_n}, {plain_n})")
+    del params, dparams, grads, dgrads
+    torch.cuda.empty_cache()
+    return plain_ms, dt_ms
+
+
 def t_slices(T, R):
     """R pieces [t0, t1) of [0, T), as R ranks along T would hold them."""
     cuts = [T * i // R for i in range(R + 1)]
@@ -3567,6 +3629,7 @@ def phase_dist():
         mesh = make_local_mesh(model=1, data=1, device=DEVICE)
         walls = {f"{n} decode": dist_decode(n, mesh) for n in DIST_DECODE}
         walls["zamba2-2.7b prefill"] = dist_prefill(mesh)
+        walls[f"{DIST_TRAIN['arch']} train step"] = dist_train(mesh)
     finally:
         dist.destroy_process_group()
     t0 = time.perf_counter()
@@ -3575,6 +3638,25 @@ def phase_dist():
     log(f"  phase 16 on {PFB.card_line()}: 16a {t16a:.1f} s, 16c"
         f" {t16c:.1f} s; warm wall plain / DTensor " + ", ".join(
             f"{k} {a:.1f} / {b:.1f} ms" for k, (a, b) in walls.items()))
+
+
+def phase_examples():
+    """Phase 17: EXAMPLES run as subprocesses on the card; each must exit
+    0."""
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                                  f"{name}.py")],
+                             capture_output=True, text=True, cwd=ROOT,
+                             timeout=EXAMPLE_TIMEOUT)
+        log(f"  17 examples/{name}.py: exit {out.returncode} in"
+            f" {time.perf_counter() - t0:.1f} s; last lines:")
+        for line in out.stdout.strip().splitlines()[-3:]:
+            log(f"    {line}")
+        if out.returncode != 0:
+            log(out.stderr[-4000:])
+            raise SystemExit(f"17: examples/{name}.py exited"
+                             f" {out.returncode}")
 
 
 def load_model(name):
@@ -3716,6 +3798,11 @@ def main() -> int:
     t16 = time.perf_counter()
     phase_dist()
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    log("[17] examples: the examples/ twins of serve_demo.py and"
+        " train_demo.py on the card")
+    t17 = time.perf_counter()
+    phase_examples()
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s,"
         f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 

@@ -28,11 +28,13 @@ Every repeat of the layer stack is traced, so nothing is undercounted:
 the reference's SCAN_UNROLL / _extrapolate (XLA counts a while-loop body
 once, so it compiled 1- and 2-repeat variants and extrapolated) have no
 twin.  One exception keeps a 32K-token prefill tractable: the chunked
-attention (`models.attention._flash_attention`) runs identical work in
-every layer, and under no_grad it is traced once per signature and
-credited to the rest (`StepRecorder.memoized`; equal to the full trace,
-peak included).  The step allocates on no device by design (the twin of
-the reference's placeholder devices), so there is no --device.
+attention (`models.attention._flash_attention`) and a no-grad chunk
+scan's group of chunks (`models.ssm._mamba2_chunks`, `_wkv6_chunks`) run
+identical work in every layer and group, and under no_grad each is traced
+once per signature and credited to the rest (`StepRecorder.memoized`;
+equal to the full trace, peak included).  The step allocates on no
+device by design (the twin of the reference's placeholder devices), so
+there is no --device.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
@@ -57,7 +59,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..configs import get_config, list_archs
-from ..models import attention
+from ..models import attention, ssm
 from ..models import model as M
 from ..models.common import set_mesh
 from ..training.optimizer import AdamW, AdamWState, tree_map
@@ -157,12 +159,8 @@ def build_step(arch: str, shape_name: str, mesh, cfg=None,
         opt = AdamW(total_steps=1000)
 
         def train_step(params, opt_state, batch):
+            # each gradient comes placed as its parameter
             loss, grads = loss_and_grads(params, cfg, batch, remat=True)
-            # each gradient reduced once, onto its parameter's placements
-            # (autograd leaves them partial sums where the batch is split)
-            grads = zip_map(lambda g, p: None if g is None else
-                             g.redistribute(mesh, p.placements), grads,
-                             params)
             params, opt_state = opt.update(grads, opt_state, params)
             return params, opt_state, loss
 
@@ -224,15 +222,23 @@ def mesh_label(mesh_shape) -> str:
     return "mesh" + "x".join(map(str, mesh_shape))
 
 
+# functions of local tensors that repeat identical work in every layer:
+# the chunked attention and a no-grad chunk scan's group of chunks
+MEMOIZED = ((attention, "_flash_attention"), (ssm, "_mamba2_chunks"),
+            (ssm, "_wkv6_chunks"))
+
+
 @contextlib.contextmanager
-def _memoized_attention(rec):
-    """The chunked attention memoized by `rec` inside the block."""
-    real = attention._flash_attention
-    attention._flash_attention = rec.memoized(real)
+def _memoized(rec):
+    """MEMOIZED's functions memoized by `rec` inside the block."""
+    real = [getattr(mod, name) for mod, name in MEMOIZED]
+    for (mod, name), fn in zip(MEMOIZED, real):
+        setattr(mod, name, rec.memoized(fn))
     try:
         yield
     finally:
-        attention._flash_attention = real
+        for (mod, name), fn in zip(MEMOIZED, real):
+            setattr(mod, name, fn)
 
 
 def trace_pair(arch: str, shape_name: str, mesh, *, cfg=None,
@@ -245,8 +251,7 @@ def trace_pair(arch: str, shape_name: str, mesh, *, cfg=None,
         arg_storages = {_local(t).untyped_storage()._cdata for t in args}
         rec = hlo_analysis.StepRecorder()
         rec.exclude(step.args)
-        with set_mesh(mesh, **step.mesh_kwargs), rec, _memoized_attention(
-                rec):
+        with set_mesh(mesh, **step.mesh_kwargs), rec, _memoized(rec):
             out = step.fn(*step.args)
         outs = _tensors(out)
         aliased = _bytes([t for t in outs if _local(t).untyped_storage()

@@ -30,9 +30,9 @@ signature (shapes, strides, dtypes and other arguments) under no_grad: a
 later call with the same signature is not run again, and its flops,
 bytes, collectives and rise in live bytes are credited from the first,
 its outputs fresh tensors of the first's layouts.  The dry run memoizes
-the chunked attention this way: identical in every layer, its chunk loop
+the chunked attention this way (identical in every layer, its chunk loop
 of thousands of pairs a layer would otherwise dominate a 32K-token
-prefill's trace.
+prefill's trace), and a no-grad chunk scan's group of chunks.
 
 Roofline terms (H100 constants, `core.hardware.H100`):
   compute    = flops / peak bf16 FLOP/s     (989e12)

@@ -373,6 +373,18 @@ def shard_kinds(args: Sequence, dims: Sequence):
     return kinds, None
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def on_shards(name: str, fn, args: Sequence, dims: Sequence,
               out_dims: Sequence):
     """fn on the local shards of DTensor `args` (`local_map`), its outputs
@@ -408,8 +420,17 @@ def on_shards(name: str, fn, args: Sequence, dims: Sequence,
     grad_pl = tuple(tuple(Partial() if k is not None and isinstance(
         p, Replicate) else p for k, p in zip(kinds, pl)) for pl in in_pl)
     out_pl = tuple(placements(d) for d in out_dims)
+
+    def local(*a):
+        # a local gradient leaves fn in whatever layout its ops give it
+        # (a transpose of the kernel's layouts), which DTensor's views of
+        # it downstream cannot take: make it contiguous
+        return fn(*(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor)
+                    and t.requires_grad and torch.is_grad_enabled() else t
+                    for t in a))
+
     # local_map reads a tuple as one placement list per output
-    mapped = local_map(fn, out_placements=out_pl if len(out_pl) > 1
+    mapped = local_map(local, out_placements=out_pl if len(out_pl) > 1
                        else list(out_pl[0]), in_placements=tuple(in_pl),
                        in_grad_placements=grad_pl, device_mesh=mesh)
     return mapped(*args)

@@ -35,7 +35,7 @@ from .attention import (attention_decode, attention_full,
                         encoder_attention, init_attention)
 from .common import (_is_dtensor, constrain, dense_init, dtype_of,
                      on_shards, replicated_like, rms_norm, seq_shard_residual,
-                     shard_kinds)
+                     shard_kinds, shard_range)
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
 from .spec import ArchConfig
@@ -255,16 +255,100 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return (logits, aux) if return_aux else logits
 
 
-def _target_logit(zs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """zs[b, s, t[b, s]] (t < 0 reads index 0).  On a DTensor whose vocab
-    may be sharded, the reference's vocab-parallel form: a masked sum over
-    the vocabulary, exact (every other term is 0), which DTensor reduces
-    across vocab shards as (B, S) partial sums; its gather strategy would
-    mask a partial it then fails to reduce."""
-    if not _is_dtensor(zs):
-        return zs.gather(-1, t.clamp(min=0)[..., None])[..., 0]
-    vidx = replicated_like(torch.arange(zs.shape[-1], device=zs.device), zs)
-    return torch.where(vidx == t.clamp(min=0)[..., None], zs, 0.0).sum(-1)
+def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """x all-reduced by `op` over each (mesh, mesh dimension) of
+    `groups` in turn (functional collectives; none for no group)."""
+    import torch.distributed._functional_collectives as funcol
+    for g in groups:
+        x = funcol.all_reduce(x, op, g)
+        x = x.wait() if hasattr(x, "wait") else x    # AsyncCollectiveTensor
+    return x
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The cross-entropy rows of one rank's logits z (B, S, V_local), a
+    shard of the vocabulary starting at `offset`, against targets t
+    (B, S), in chunks of `cs` positions: one (B, cs) f32 tensor a chunk,
+    lse - z[target] where t >= 0, else 0.  A chunk's row max, sum of exp
+    and target logit (0 on the shards that do not hold it) are
+    all-reduced over the vocab `groups`, so every exchange is
+    (B, cs)-sized; the backward sends z's gradient, softmax - onehot,
+    back on the same shard, with no exchange at all.
+
+    Op for op a chunk's f32 log-sum-exp less its gathered target logit
+    and the gradient autograd takes through them, so the bits are those
+    of the plain chunk loop; it saves only z and each chunk's max and
+    sum of exp, recomputes exp in the backward, and holds one f32 chunk
+    at a time in place."""
+
+    @staticmethod
+    def forward(ctx, z, t, offset, cs, groups):
+        rows, maxes, sums = [], [], []
+        for i in range(0, z.shape[1], cs):
+            zc, tc = z[:, i:i + cs], t[:, i:i + cs]
+            m = _all_reduce(zc.amax(dim=-1, keepdim=True).float(), "max",
+                            groups)
+            zs = zc - m                                  # f32
+            idx, held = _local_target(tc, offset, z.shape[-1])
+            tl = _all_reduce(torch.where(held, zs.gather(-1, idx)[..., 0],
+                                         0.0), "sum", groups)
+            se = _all_reduce(zs.exp_().sum(dim=-1), "sum", groups)
+            rows.append(torch.where(tc >= 0, torch.log(se) - tl, 0.0))
+            maxes.append(m)
+            sums.append(se)
+        ctx.save_for_backward(z, t, *maxes, *sums)
+        ctx.offset, ctx.cs = offset, cs
+        return tuple(rows)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        z, t, *saved = ctx.saved_tensors
+        n = len(grads)
+        maxes, sums = saved[:n], saved[n:]
+        cs = ctx.cs
+        dz = torch.empty_like(z)
+        for c, i in enumerate(range(0, z.shape[1], cs)):
+            tc = t[:, i:i + cs]
+            dl = torch.where(tc >= 0, grads[c], 0.0)     # d lse, -d tl
+            d = (z[:, i:i + cs] - maxes[c]).exp_()       # f32
+            d.mul_((dl / sums[c])[..., None])
+            idx, held = _local_target(tc, ctx.offset, z.shape[-1])
+            d.scatter_(-1, idx, d.gather(-1, idx)
+                       - torch.where(held, dl, 0.0)[..., None])
+            dz[:, i:i + cs] = d
+        return dz, None, None, None, None
+
+
+def _local_target(t, offset: int, V: int):
+    """The index into a vocab shard [offset, offset + V) of targets t
+    (B, cs) as (B, cs, 1), clamped into the shard, and whether the shard
+    holds each target (t < 0 reads index 0)."""
+    local = t.clamp(min=0) - offset
+    return local.clamp(0, V - 1)[..., None], (local >= 0) & (local < V)
+
+
+def _vocab_parallel_rows(txt, targets, cs: int):
+    """`_VocabParallelCE` on each rank's shard of DTensor logits txt
+    (B, S, V) and DTensor targets (B, S): the rows as (B, cs) DTensors
+    placed as txt with the vocab replicated, and txt's gradient placed as
+    txt (vocab-parallel: the head's constraint then moves nothing).  The
+    sequence must be whole."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = txt.device_mesh
+    if any(p.is_shard(1) or p.is_partial() for p in txt.placements):
+        raise NotImplementedError(
+            f"the cross-entropy needs whole sequences and no partial"
+            f" logits, not {txt.placements}")
+    row_pl = tuple(Replicate() if p.is_shard(2) else p
+                   for p in txt.placements)
+    groups = [(mesh, m) for m, p in enumerate(txt.placements)
+              if p.is_shard(2) and mesh.size(m) > 1]
+    rows = _VocabParallelCE.apply(
+        txt.to_local(grad_placements=txt.placements),
+        targets.redistribute(mesh, row_pl).to_local(),
+        shard_range(txt, 2)[0], cs, groups)
+    return [DTensor.from_local(r, mesh, row_pl, run_check=False)
+            for r in rows]
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -277,7 +361,10 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     "patches" / "frames".  The targets are labels[:, 1:] with -1 (ignored)
     after the last; the modality prefix is unlabeled.  The cross-entropy is
     taken in f32, in chunks of min(512, S) positions halved until they
-    divide S, and averaged over the valid targets.
+    divide S, and averaged over the valid targets, in the reference's
+    vocab-parallel form (`_VocabParallelCE`; plain logits are one vocab
+    shard): every cross-shard exchange of DTensor logits is (B, cs)-sized,
+    and the gradient stays on each rank's vocab shard.
     """
     logits, aux = forward(params, cfg, batch["tokens"], mode="train",
                           frames=batch.get("frames"),
@@ -293,15 +380,11 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     nll_sum = replicated_like(torch.zeros((), dtype=torch.float32,
                                           device=txt.device), txt)
     count = 0
-    for i in range(0, S, cs):
-        zf = txt[:, i:i + cs].float()
-        t = targets[:, i:i + cs]
-        zs = zf - zf.amax(dim=-1, keepdim=True).detach()
-        lse = torch.log(torch.exp(zs).sum(dim=-1))
-        valid = t >= 0
-        tl = _target_logit(zs, t)
-        nll_sum = nll_sum + torch.where(valid, lse - tl, 0.0).sum()
-        count = count + valid.sum()
+    rows = _vocab_parallel_rows(txt, targets, cs) if _is_dtensor(txt) \
+        else _VocabParallelCE.apply(txt, targets, 0, cs, ())
+    for c, i in enumerate(range(0, S, cs)):
+        nll_sum = nll_sum + rows[c].sum()
+        count = count + (targets[:, i:i + cs] >= 0).sum()
     return nll_sum / torch.clamp(count, min=1) + aux_weight * aux
 
 

@@ -96,9 +96,13 @@ def _mamba_inner(cfg, params, h, conv_state=None):
         # the last d_conv-1 inputs, right-aligned; a shorter prompt gets
         # the zeros the conv saw before t = 0 in front (the reference
         # keeps only the prompt's rows there: ROADMAP C7)
+        # (a copy of its own: a view would keep the whole (B, S, C)
+        # input alive as long as the cache)
         K1 = cfg.d_conv - 1
-        new_conv_state = pad(xbc, (0, 0, max(K1 - xbc.shape[1], 0), 0)
-                               )[:, -K1:]
+        new_conv_state = xbc[:, -K1:].clone()
+        if new_conv_state.shape[1] < K1:
+            new_conv_state = pad(new_conv_state, (
+                0, 0, K1 - new_conv_state.shape[1], 0))
     xbc = silu(conv)
     xs, Bm, Cm = torch.split(xbc, [di, ds, ds], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])
@@ -149,6 +153,30 @@ def _carry(s0: torch.Tensor, decay: torch.Tensor, inc: torch.Tensor):
     return torch.stack(starts, dim=1), s
 
 
+# chunks a scan takes at once where autograd does not record it
+MAMBA_GROUP = 16            # of 128 tokens: 2048 tokens a group
+WKV_GROUP = 64              # blocks of 16 tokens: 1024 tokens a group
+
+
+def _records(*tensors) -> bool:
+    """Whether autograd records a call on `tensors` (None skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _grouped(chunks, step: int, S: int, out: torch.Tensor, s0, rows, rest):
+    """A chunk scan under no autograd, `step` tokens (whole chunks) a
+    call: `chunks(*rows[g:g+step], *rest, state, ...)` for each group, the
+    state carried from group to group; each group's output (padded to
+    whole chunks) written into `out` (B, S, ...).  Returns the final
+    state."""
+    state = s0
+    for g in range(0, S, step):
+        y, state = chunks(*(a[:, g:g + step] for a in rows), *rest, state)
+        out[:, g:g + step] = y[:, :min(step, S - g)]
+    return state
+
+
 def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                       dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor, *,
                       chunk: int = 128,
@@ -164,10 +192,13 @@ def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     chunk's cumulative sum.  At zamba2's A (down to -16) that sum reaches
     ~-3000 within a chunk, where the difference keeps ~4 fewer digits:
     the reference's form leaves dt's and A's gradients ~1e-5-1e-4 of
-    their max from float64, this one ~3e-7 (ROADMAP C12).  Every chunk's
-    products are taken at once; only the state (B,nh,hd,ds) is carried
-    chunk to chunk (`_carry`).  Returns (y (B,S,nh,hd), final_state
-    (B,nh,hd,ds)), f32, y including D x.
+    their max from float64, this one ~3e-7 (ROADMAP C12).  Where autograd
+    records the call, every chunk's products are taken at once (autograd
+    keeps them anyway); only the state (B,nh,hd,ds) is carried chunk to
+    chunk (`_carry`).  Otherwise (a prefill) MAMBA_GROUP chunks are taken
+    at a time and the state carried between groups, as the reference's
+    `lax.scan` holds one chunk's products at a time.  Returns (y
+    (B,S,nh,hd), final_state (B,nh,hd,ds)), f32, y including D x.
     """
     if _is_dtensor(xh):
         return _scan_on_shards("mamba2_chunk_scan", functools.partial(
@@ -176,6 +207,24 @@ def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     B, S, nh, hd = xh.shape
     ds = Bm.shape[-1]
     Lc = min(chunk, S)
+    s0 = (init_state.float() if init_state is not None else
+          xh.new_zeros(B, nh, hd, ds, dtype=torch.float32))
+    step = MAMBA_GROUP * Lc
+    if S <= step or _records(xh, Bm, Cm, dt, A, D, init_state):
+        y, state = _mamba2_chunks(xh, Bm, Cm, dt, A, s0, Lc)
+        return y[:, :S] + xh * D[None, None, :, None], state
+    y = xh.new_empty(B, S, nh, hd, dtype=torch.float32)
+    state = _grouped(lambda *a: _mamba2_chunks(*a, Lc), step, S, y, s0,
+                     (xh, Bm, Cm, dt), (A,))
+    # D x added in place: one whole-sequence tensor fewer
+    return y.add_(xh * D[None, None, :, None]), state
+
+
+def _mamba2_chunks(xh, Bm, Cm, dt, A, s0, Lc: int):
+    """`mamba2_chunk_scan`'s chunks of Lc tokens from state s0, all at
+    once: (y (B, n Lc, nh, hd) without D x, padded to whole chunks, and
+    the final state)."""
+    B, S, nh, hd = xh.shape
     xh_c, B_c, C_c, dt_c = (_blocks(a, Lc) for a in (xh, Bm, Cm, dt))
     xt = xh_c * dt_c[..., None]                    # x-tilde, 0 past S
     lA = dt_c * A                                  # (B,n,Lc,nh) <= 0
@@ -193,15 +242,12 @@ def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     inc = torch.einsum("bctnp,bcts->bcnps",
                        xt * torch.exp(seg[:, :, -1])[..., None], B_c)
     cs = lA[:, :, :1] + seg[:, :, :, 0]            # inclusive, (B,n,Lc,nh)
-    s0 = (init_state.float() if init_state is not None else
-          xh.new_zeros(B, nh, hd, ds, dtype=torch.float32))
     starts, state = _carry(s0, torch.exp(cs[:, :, -1])[..., None, None],
                            inc)
     # inter-chunk: y_q += exp(cs_q) C_q . state entering the chunk
     y = y + torch.einsum("bcqs,bcnps->bcqnp", C_c, starts) \
         * torch.exp(cs)[..., None]
-    y = y.reshape(B, -1, nh, hd)[:, :S]
-    return y + xh * D[None, None, :, None], state
+    return y.reshape(B, -1, nh, hd), state
 
 
 def mamba2_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
@@ -343,9 +389,11 @@ def wkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     for s < t, with cw / cw_ex the inclusive / exclusive cumulative
     log-decay inside the block, lw = log(max(w, 1e-12)).  Each exponent is
-    at most max(m, L - m) |lw| <= 8 |lw|: finite for w >= 2e-5.  Every
-    block's products are taken at once; only the state is carried block
-    to block (`_carry`).
+    at most max(m, L - m) |lw| <= 8 |lw|: finite for w >= 2e-5.  Where
+    autograd records the call, every block's products are taken at once;
+    only the state is carried block to block (`_carry`).  Otherwise
+    WKV_GROUP blocks are taken at a time, the state carried between
+    groups.
 
     r,k,v,w: (B,S,H,hd), u: (H,hd).  Returns (out (B,S,H,hd), final_state
     (B,H,hd,hd) [k-dim, v-dim]), f32.
@@ -355,6 +403,22 @@ def wkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             wkv6_chunk_scan, chunk=chunk), (r, k, v, w), (u,), init_state)
     B, S, H, hd = r.shape
     L = min(chunk, SUB_CHUNK, S)
+    s0 = (init_state.float() if init_state is not None else
+          r.new_zeros(B, H, hd, hd, dtype=torch.float32))
+    step = WKV_GROUP * L
+    if S <= step or _records(r, k, v, w, u, init_state):
+        out, state = _wkv6_chunks(r, k, v, w, u, s0, L)
+        return out[:, :S], state
+    out = r.new_empty(B, S, H, hd, dtype=torch.float32)
+    state = _grouped(lambda *a: _wkv6_chunks(*a, L), step, S, out, s0,
+                     (r, k, v, w), (u,))
+    return out, state
+
+
+def _wkv6_chunks(r, k, v, w, u, s0, L: int):
+    """`wkv6_chunk_scan`'s blocks of L tokens from state s0, all at once:
+    (out (B, n L, H, hd), padded to whole blocks, and the final state)."""
+    B, S, H, hd = r.shape
     r_, k_, v_ = (_blocks(a.float(), L) for a in (r, k, v))
     lw = torch.log(torch.clamp(_blocks(w.float(), L, fill=1.0), min=1e-12))
     cw = torch.cumsum(lw, dim=2)                   # (B,n,L,H,hd) inclusive
@@ -372,13 +436,11 @@ def wkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last = cw[:, :, -1]                            # (B,n,H,hd)
     inc = torch.einsum("bcshd,bcshe->bchde",
                        k_ * torch.exp(last[:, :, None] - cw), v_)
-    s0 = (init_state.float() if init_state is not None else
-          r_.new_zeros(B, H, hd, hd))
     starts, state = _carry(s0, torch.exp(last)[..., None], inc)
     # the state entering the block: out_t += (r_t exp(cw_ex_t)) . state
     out = out + torch.einsum("bcthd,bchde->bcthe", r_ * torch.exp(cw_ex),
                              starts)
-    return out.reshape(B, -1, H, hd)[:, :S], state
+    return out.reshape(B, -1, H, hd), state
 
 
 def rwkv6_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
@@ -399,7 +461,9 @@ def rwkv6_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
     x, h2 = _channel_mix(params, cfg, x)
     cache = None
     if mode == "prefill":
-        cache = {"wkv": state, "shift_tm": h[:, -1], "shift_cm": h2[:, -1]}
+        # copies of the last rows: views would keep h and h2 alive
+        cache = {"wkv": state, "shift_tm": h[:, -1].clone(),
+                 "shift_cm": h2[:, -1].clone()}
     return x, cache
 
 

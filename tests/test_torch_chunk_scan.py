@@ -34,6 +34,7 @@ from hypothesis import given, settings, strategies as st
 from repro.models.ssm import mamba2_chunk_scan as jax_mamba2_chunk_scan
 from repro.models.ssm import wkv6_chunk_scan as jax_wkv6_chunk_scan
 from repro_torch.kernels.ref import mamba_scan_ref, wkv6_ref
+from repro_torch.models import ssm as ssm_module
 from repro_torch.models.ssm import (SUB_CHUNK, mamba2_chunk_scan,
                                     wkv6_chunk_scan)
 
@@ -367,3 +368,79 @@ def test_wkv6_blocks_are_sub_chunks():
     for a, b in zip(_run(wkv6_chunk_scan, args, 64),
                     _run(wkv6_chunk_scan, args, 16)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- C15: a no-grad call takes its chunks a group at a time -------------------
+
+GROUP_CASES = [  # (kind, shape, chunk, group, init_state): S not a multiple
+    ("mamba", (2, 300, 3, 8, 16), 16, 4, True),     # of the group's tokens
+    ("mamba", (1, 200, 2, 16, 8), 64, 1, False),
+    ("wkv", (2, 300, 2, 16), 64, 5, True),
+    ("wkv", (1, 37, 1, 8), 16, 1, False)]
+
+
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_grouped_scan_matches_all_at_once_and_reference(monkeypatch, case):
+    """Without autograd the scans take a group of chunks at a time
+    (MAMBA_GROUP, WKV_GROUP; here `group`), the state
+    carried between groups: y within 1e-6 of max|y| of the all-at-once
+    form (one group of every chunk), the final states equal to rounding,
+    and both within the reference's tolerances (tests/models/
+    test_ssm_blocks.py's) of its chunk scan, init_state included."""
+    kind, shape, chunk, group, state = case
+    if kind == "mamba":
+        fn, jfn, tol = mamba2_chunk_scan, jax_mamba2_chunk_scan, dict(
+            atol=MAMBA_ATOL, rtol=0)
+        args = _mamba_inputs(*shape, seed=sum(shape), state=state)
+    else:
+        fn, jfn, tol = wkv6_chunk_scan, jax_wkv6_chunk_scan, WKV_TOL
+        args = _wkv_inputs(*shape, seed=sum(shape), w_range=(0.05, 1.0),
+                           state=state)
+    xs, s0 = _split(fn, args)
+    t = [torch.from_numpy(a) for a in xs]
+    init = None if s0 is None else torch.from_numpy(s0)
+    calls = []
+    chunks = ssm_module._mamba2_chunks if kind == "mamba" \
+        else ssm_module._wkv6_chunks
+    size = "MAMBA_GROUP" if kind == "mamba" else "WKV_GROUP"
+    monkeypatch.setattr(ssm_module, chunks.__name__, lambda *a: calls.append(
+        a[0].shape[1]) or chunks(*a))
+    monkeypatch.setattr(ssm_module, size, group)
+    y, st_ = fn(*t, chunk=chunk, init_state=init)
+    n_grouped = len(calls)
+    monkeypatch.setattr(ssm_module, size, 10 ** 6)
+    y1, st1 = fn(*t, chunk=chunk, init_state=init)
+    L = min(chunk, shape[1]) if kind == "mamba" \
+        else min(chunk, SUB_CHUNK, shape[1])
+    S = shape[1]
+    assert n_grouped == -(-S // (group * L)) and len(calls) == \
+        n_grouped + 1 and calls[-1] == S
+    assert y.shape == y1.shape and st_.shape == st1.shape
+    scale = float(y1.abs().max())
+    assert float((y - y1).abs().max()) <= 1e-6 * scale
+    np.testing.assert_allclose(st_.numpy(), st1.numpy(), atol=1e-6 * float(
+        st1.abs().max()), rtol=0)
+    jy, jst, _ = _jax_scan(jfn, args, chunk)
+    np.testing.assert_allclose(y.numpy(), jy, **tol)
+    np.testing.assert_allclose(st_.numpy(), jst, **tol)
+
+
+@pytest.mark.parametrize("kind", ["mamba", "wkv"])
+def test_grouped_only_without_autograd(monkeypatch, kind):
+    """Under autograd the scans keep the all-at-once form, the training
+    path's: one call of every chunk whatever the group, and so the same
+    bits."""
+    fn = mamba2_chunk_scan if kind == "mamba" else wkv6_chunk_scan
+    name = "_mamba2_chunks" if kind == "mamba" else "_wkv6_chunks"
+    args = _mamba_inputs(1, 100, 2, 8, 4, seed=5) if kind == "mamba" \
+        else _wkv_inputs(1, 100, 2, 8, seed=5, w_range=(0.05, 1.0))
+    real, calls = getattr(ssm_module, name), []
+    monkeypatch.setattr(ssm_module, name, lambda *a: calls.append(1)
+                        or real(*a))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y1, st1 = fn(*leaves, chunk=16)
+    monkeypatch.setattr(ssm_module, "MAMBA_GROUP", 1)
+    monkeypatch.setattr(ssm_module, "WKV_GROUP", 1)
+    y, st_ = fn(*leaves, chunk=16)
+    assert calls == [1, 1] and y.grad_fn is not None
+    assert torch.equal(y, y1) and torch.equal(st_, st1)

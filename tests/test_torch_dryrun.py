@@ -207,3 +207,68 @@ def test_dryrun_subprocess_smoke(tmp_path):
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert "decode_32k pod16x16: ok" in r.stdout, r.stdout + r.stderr
     assert (tmp_path / "whisper-medium_decode_32k_pod16x16.json").exists()
+
+
+def test_vocab_parallel_loss_moves_no_logits(monkeypatch):
+    """C14: a train step whose logits' vocabulary lies on `model` (the
+    tensor-parallel rules, not pure data parallelism) takes the
+    vocab-parallel cross-entropy: no collective's result holds the rank's
+    (B_local, S, V) logits or more, and their gradient reaches the head's
+    constraint on its vocab shard, (Shard(0), Shard(2)), as the
+    constraint binds it (nothing to redistribute)."""
+    from repro_torch.models import common
+    monkeypatch.setattr(D, "pure_dp", lambda cfg, mesh: False)
+    cfg = get_config("yi-6b").reduced(n_repeat=1, vocab=16384)
+    shape = InputShape("train_4k", 32, 64, "train")
+    seen, real = [], common._Constrain.backward
+
+    def bind(ctx, g):
+        if g.ndim == 3 and g.shape[-1] == cfg.vocab:
+            seen.append((tuple(g.placements), ctx.placements))
+        return real(ctx, g)
+
+    monkeypatch.setattr(common._Constrain, "backward", staticmethod(bind))
+    recs = []
+    real_trace = D.hlo_analysis.collective_bytes
+
+    def keep(records):
+        recs.extend(records)
+        return real_trace(records)
+
+    monkeypatch.setattr(D.hlo_analysis, "collective_bytes", keep)
+    r = D.run_pair("yi-6b", "train_4k", cfg=cfg, shape=shape,
+                   mesh_shape=SMALL_MESH[0], mesh_names=SMALL_MESH[1],
+                   save=False)
+    assert r["status"] == "ok", r.get("traceback")
+    b_local = shape.global_batch // SMALL_MESH[0][0]
+    logits = b_local * shape.seq_len * cfg.vocab \
+        * getattr(torch, cfg.dtype).itemsize         # bytes
+    assert recs and max(n for _, n in recs) < logits, max(recs)
+    shard = (Shard(0), Shard(2))
+    assert seen == [(shard, shard)]
+
+
+@pytest.mark.parametrize("arch", ["llama31-70b", "whisper-medium"])
+def test_cut_depth_shards_as_the_full_config(arch):
+    """`tools/dryrun_peak_tensor.py`'s `cut_depth` keeps the full config's
+    parameter count, so a cut pair is sharded as the full one: the same
+    mesh settings (pure data parallelism, the sequence-parallel residual)
+    and the same specs of every parameter of a repeat; whisper's encoder
+    is cut alike."""
+    from repro_torch.launch.shapes import SHAPES
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "tools"))
+    from dryrun_peak_tensor import cut_depth
+    cfg = get_config(arch)
+    cut = cut_depth(cfg, 2)
+    assert cut.n_repeat == 2 and cut.param_count() == cfg.param_count()
+    if cfg.encoder is not None:
+        assert cut.encoder.n_layers == 2
+    stub = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                 axis_names=("data", "model"))
+    _, full_specs, full_kw = D.step_inputs(cfg, SHAPES["train_4k"], stub)
+    _, cut_specs, cut_kw = D.step_inputs(cut, SHAPES["train_4k"], stub)
+    assert cut_kw == full_kw
+    assert cut_specs["params"]["layers"][0] == \
+        full_specs["params"]["layers"][0]
+    assert cut_specs["batch"] == full_specs["batch"]

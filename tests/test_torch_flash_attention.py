@@ -287,7 +287,7 @@ def test_dry_run_memoizes_the_chunked_attention(monkeypatch):
         memo = D.trace_pair("yi-6b", "prefill_1k", mesh, cfg=cfg,
                             shape=shape)
         n_memo = len(calls)
-        monkeypatch.setattr(D, "_memoized_attention",
+        monkeypatch.setattr(D, "_memoized",
                             lambda rec: contextlib.nullcontext())
         full = D.trace_pair("yi-6b", "prefill_1k", mesh, cfg=cfg,
                             shape=shape)

@@ -16,6 +16,10 @@ weights, distributes them by the rules and runs:
     gradient leaf under the train rules (pure data parallelism: the batch
     over both axes; four MoE dispatch groups; the chunk scans on each
     rank's rows), with `remat=True`;
+  * yi-6b under the train rules without pure data parallelism (the batch
+    on `data`, the vocabulary of the logits on `model`): the loss and every
+    gradient leaf through the vocab-parallel cross-entropy, whose gradient
+    must reach the head's constraint on its vocab shard (Shard(2));
 
 and holds them to the same calls on plain tensors (one group, no remat)
 within 1e-5 of each tensor's largest magnitude.
@@ -28,12 +32,14 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.tensor import Shard
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.sharding import (batch_specs, cache_specs,
                                          distribute, param_specs, pure_dp)
+from repro_torch.models import common
 from repro_torch.models import model as M
 from repro_torch.models.common import set_mesh
 from repro_torch.training.optimizer import tree_leaves
@@ -86,7 +92,7 @@ def _decode(mesh, seq_on_model=False):
     return errs
 
 
-def _train(mesh, arch, n_repeat=2):
+def _train(mesh, arch, n_repeat=2, wide=None):
     cfg = get_config(arch).reduced(n_repeat=n_repeat)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     B, S = 8, 12
@@ -94,7 +100,7 @@ def _train(mesh, arch, n_repeat=2):
     batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g),
              "labels": torch.randint(0, cfg.vocab, (B, S), generator=g)}
     loss, grads = loss_and_grads(params, cfg, batch)
-    wide = pure_dp(cfg, mesh)
+    wide = pure_dp(cfg, mesh) if wide is None else wide
     bspec = batch_specs(mesh, B, wide=wide)
     dparams = distribute(params, param_specs(cfg, params, mesh), mesh)
     dbatch = {k: distribute(v, bspec + (None,), mesh)
@@ -102,9 +108,10 @@ def _train(mesh, arch, n_repeat=2):
     with set_mesh(mesh, batch_axes_override=("pod", "data", "model")
                   if wide else None):
         dloss, dgrads = loss_and_grads(dparams, cfg, dbatch, remat=True)
-    errs = {f"{arch} train loss": _rel(dloss, loss)}
+    tag = arch if wide else f"{arch} (vocab on model)"
+    errs = {f"{tag} train loss": _rel(dloss, loss)}
     for i, (a, b) in enumerate(zip(tree_leaves(dgrads), tree_leaves(grads))):
-        errs[f"{arch} grad leaf {i}"] = _rel(a, b)
+        errs[f"{tag} grad leaf {i}"] = _rel(a, b)
     return errs
 
 
@@ -112,12 +119,18 @@ def _worker(rank, port, out):
     torch.set_num_threads(1)        # four processes share the host's cores
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=WORLD, rank=rank)
-    merges = []
+    merges, head_grads = [], []
     real = ops.gather_states
+    real_bind = common._Constrain.backward
 
     def counted(x, mesh, dims):
         merges.append(list(dims))   # the mesh dimensions that shard T
         return real(x, mesh, dims)
+
+    def bind(ctx, g):               # the logits' gradient at the head
+        if g.ndim == 3 and g.shape[-1] == get_config("yi-6b").reduced().vocab:
+            head_grads.append((tuple(g.placements), ctx.placements))
+        return real_bind(ctx, g)
 
     try:
         mesh = make_local_mesh(model=2, data=2, device="cpu")
@@ -127,9 +140,13 @@ def _worker(rank, port, out):
         ops.gather_states = real
         errs.update({**_train(mesh, "granite-moe-1b-a400m"),
                      **_train(mesh, "zamba2-2.7b", 1)})
+        common._Constrain.backward = staticmethod(bind)
+        errs.update(_train(mesh, "yi-6b", wide=False))
         if rank == 0:
-            torch.save({"errs": errs, "merges": merges}, out)
+            torch.save({"errs": errs, "merges": merges,
+                        "head_grads": head_grads}, out)
     finally:
+        common._Constrain.backward = real_bind
         dist.destroy_process_group()
 
 
@@ -157,6 +174,10 @@ def test_sharded_steps_match_unsharded(tmp_path):
     # every attention block of the sequence-sharded decode merged over
     # `model` (mesh dimension 1)
     assert saved["merges"] == [[1]] * 2
+    # the vocab-parallel loss's gradient arrives on the vocab shards the
+    # head's constraint binds (batch on data, vocab on model): no exchange
+    shard = (Shard(0), Shard(2))
+    assert saved["head_grads"] == [(shard, shard)]
     assert len(errs) > 10
     bad = {k: v for k, v in errs.items() if not v <= TOL}
     assert not bad, bad

@@ -1,12 +1,12 @@
 """Import and device hygiene of the port.
 
-The port, `chip_smoke.py` and the port's tools (`tools/port_fleet_bench.py`,
+The port, `chip_smoke.py`, the port's tools (`tools/port_fleet_bench.py`,
 `tools/port_paper_tables.py`, `tools/port_trace_report.py`,
-`tools/port_roofline_report.py`, `tools/port_opt_vs_baseline.py`) import
-neither jax nor the reference package `repro`; importing them leaves jax unloaded;
-the port's entry points refuse to run on CUDA when there is none instead
-of falling back to the CPU; and its kernel modules import where no CUDA
-toolkit is installed.
+`tools/port_roofline_report.py`, `tools/port_opt_vs_baseline.py`) and the
+`examples/port_*.py` twins import neither jax nor the reference package
+`repro`; importing them leaves jax unloaded; the port's entry points
+refuse to run on CUDA when there is none instead of falling back to the
+CPU; and its kernel modules import where no CUDA toolkit is installed.
 """
 import ast
 import os
@@ -22,7 +22,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] + [ROOT / "tools" / f"{name}.py" for name in (
         "port_fleet_bench", "port_paper_tables", "port_trace_report",
         "port_roofline_report", "port_opt_vs_baseline",
-        "dryrun_peak_tensor", "compare_prefill")]
+        "dryrun_peak_tensor", "compare_prefill")] \
+    + sorted((ROOT / "examples").glob("port_*.py"))
 
 
 def _imported_roots(path):

@@ -195,6 +195,44 @@ def test_remat_gives_the_same_grads():
                 torch.testing.assert_close(r, g, atol=0, rtol=0)
 
 
+def _inline_chunk_ce(z, t, cs):
+    """Each chunk's f32 log-sum-exp less its gathered target logit, with
+    autograd's own gradient: the rows `_VocabParallelCE` must equal."""
+    rows = []
+    for i in range(0, z.shape[1], cs):
+        zf = z[:, i:i + cs].float()
+        zs = zf - zf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(zs).sum(dim=-1))
+        tc = t[:, i:i + cs]
+        tl = zs.gather(-1, tc.clamp(min=0)[..., None])[..., 0]
+        rows.append(torch.where(tc >= 0, lse - tl, 0.0))
+    return rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_cross_entropy_is_the_inline_chunk_bit_for_bit(dtype):
+    """On plain logits (one vocab shard, no group) the loss's
+    `_VocabParallelCE` gives the rows and the logits' gradient of the
+    inline chunk loop bit for bit: the masked target sum is the gather
+    exactly, and the backward is autograd's softmax - onehot."""
+    g = torch.Generator().manual_seed(7)
+    B, S, V, cs = 3, 64, 1000, 16
+    z = (torch.randn(B, S, V, generator=g) * 4).to(dtype)
+    t = torch.randint(0, V, (B, S), generator=g)
+    t[0, :9] = -1
+    t[:, -1] = -1
+    w = torch.rand(S // cs, B, cs, generator=g)     # per-row cotangents
+    out = []
+    for fn in (lambda x: _inline_chunk_ce(x, t, cs),
+               lambda x: M._VocabParallelCE.apply(x, t, 0, cs, ())):
+        x = z.clone().requires_grad_()
+        rows = fn(x)
+        sum((r * wc).sum() for r, wc in zip(rows, w)).backward()
+        out.append((torch.stack([r.detach() for r in rows]), x.grad))
+    assert torch.equal(out[1][0], out[0][0])
+    assert torch.equal(out[1][1], out[0][1])
+
+
 # ---- MoE: the aux loss, drops, and the gather-only primitives --------------
 
 def test_capacity_half_drops_match_reference():
