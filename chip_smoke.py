@@ -56,8 +56,10 @@ Phases, in order; any failure exits non-zero:
               size and block count, and, on the same K/V in bf16,
               flash_decode's and SDPA's (eager and device_ms);
   4. model    llama31-8b at full width and depth (bf16, seeded random
-              weights): ragged prompts prefilled, one decode step through
-              the kernel and one through the plain attention on the same
+              weights): ragged prompts prefilled (the S = 1000 prefill's
+              peak device memory over what was allocated before it printed
+              beside the bytes of the cache it returns), one decode step
+              through the kernel and one through the plain attention on the same
               cache, logits compared within a stated bound; a planted
               fault (attention that skips the last 64-row tile) must
               exceed that bound; then one more decode step on the same
@@ -291,10 +293,12 @@ Phases, in order; any failure exits non-zero:
               of kernels/ops.py):
               16a on the card's host, DIST_PAIRS (one pair per rule of
               tests/launch/test_sharding_rules.py, full size, 16 x 16 and
-              one at 2 x 16 x 16) traced by `dryrun.run_pair` on the fake
+              two at 2 x 16 x 16) traced by `dryrun.run_pair` on the fake
               production mesh, DIST_WORKERS processes at once: each `ok`,
               its traced argument bytes equal to the rules'
-              (`dryrun.argument_bytes`); per pair the trace wall,
+              (`dryrun.argument_bytes`), DIST_FIT's pairs with
+              fits_h100 (pure DP on 2 x 16 x 16, a 32K prefill whose KV
+              heads do not divide `model`); per pair the trace wall,
               arguments and peak GiB per device, fits_h100, the roofline
               terms and collective bytes by kind; a planted fault (DIST_FAULT:
               `model` on a dimension it does not divide) must raise in
@@ -634,7 +638,14 @@ DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
      "encoder-decoder: cross-attention cache, KV heads on model"),
     ("whisper-medium", "decode_32k", True,
      "the 2 x 16 x 16 mesh: batch over pod+data"),
+    ("granite-moe-1b-a400m", "train_4k", True,
+     "pure DP on 2 x 16 x 16: batch 256 over data+model, pod holding it"
+     " twice"),
 ]
+# 16a's pairs that must fit one card's 80 GiB: a pure-DP batch that does
+# not divide the mesh (C17), a 32K prefill's caches written sharded (C16)
+DIST_FIT = {("granite-moe-1b-a400m", "train_4k", True),
+            ("llava-next-34b", "prefill_32k", False)}
 DIST_WORKERS = 4                        # host processes tracing 16a's pairs
 DIST_FAULT = ((1000, 64), ("model", None))   # 1000 % 16 != 0
 DIST_DECODE = ("llama31-8b", MOE_ARCH)  # one decode step each, 16 x 256
@@ -1167,7 +1178,17 @@ def phase_model(cfg, params):
     for slot, plen in enumerate(PLENS):
         prompt = torch.randint(0, cfg.vocab, (1, plen), generator=gen,
                                device=DEVICE)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         logits, pc = M.forward(params, cfg, prompt, mode="prefill")
+        if plen == PLENS[-1]:
+            held = sum(t.numel() * t.element_size() for c in pc.values()
+                       for t in c.values())
+            log(f"  prefill at S = {plen}: peak"
+                f" {(torch.cuda.max_memory_allocated() - base) / 2**30:.4f}"
+                f" GiB over what was allocated before it, returned cache"
+                f" {held / 2**30:.4f} GiB")
         splice(cache, pc, slot, plen)
         first.append(int(logits[0, -1].argmax()))
     tokens = torch.tensor(first, device=DEVICE)[:, None]
@@ -3397,6 +3418,10 @@ def phase_dist_host():
         if b["arguments"] != want:
             raise SystemExit(f"16a: {arch} {shape}: traced arguments"
                              f" {b['arguments']} != the rules' {want}")
+        if (arch, shape, mp) in DIST_FIT and not r["fits_h100"]:
+            raise SystemExit(f"16a: {arch} {shape} {r['mesh']}: peak"
+                             f" {b['peak'] / 2**30:.2f} GiB does not fit"
+                             f" one card")
     shape, spec = DIST_FAULT
     with make_production_mesh() as mesh, \
             torch._subclasses.fake_tensor.FakeTensorMode():

@@ -46,6 +46,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import multiprocessing
 import pathlib
@@ -170,13 +171,14 @@ def build_step(arch: str, shape_name: str, mesh, cfg=None,
     if shape.kind == "prefill":
         @torch.no_grad()
         def prefill_step(params, batch):
+            # each layer's cache is written in the reference's
+            # out_shardings, `cache_specs`, as its block returns it
             logits, cache = M.forward(
                 params, cfg, batch["tokens"], mode="prefill",
                 frames=batch.get("frames"), patches=batch.get("patches"),
-                chunk_scans=True)
-            cspecs = cache_specs(cfg, cache, mesh, batch=shape.global_batch)
-            return (_redistribute(logits, bspec[:1], mesh),
-                    _redistribute(cache, cspecs, mesh))
+                chunk_scans=True, cache_specs=functools.partial(
+                    cache_specs, cfg, mesh=mesh, batch=shape.global_batch))
+            return _redistribute(logits, bspec[:1], mesh), cache
 
         return Step(prefill_step, (a["params"], a["batch"]), mesh_kwargs)
 

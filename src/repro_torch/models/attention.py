@@ -180,14 +180,19 @@ def _flash_attention(q, k, v, *, causal: bool, window: int, q_offset: int,
     qc, kc = min(q_chunk, S), min(kv_chunk, T)
     nq, nk = -(-S // qc), -(-T // kc)
     qs = pad(q, (0, 0, 0, 0, 0, nq * qc - S)).reshape(B, nq, qc, K, G, D)
-    # f32 K^T and V once, chunk-major, (B, K) folded into one batch
-    # dimension: (nk, B K, D, kc) and (nk, B K, kc, D)
-    kt = pad(k, (0, 0, 0, 0, 0, nk * kc - T)).float().reshape(
+    # K^T and V chunk-major in their own dtype, (B, K) folded into one
+    # batch dimension: (nk, B K, D, kc) and (nk, B K, kc, D); a pair takes
+    # its kv chunk to f32 (`_q_chunk`), as the reference's scan does
+    kt = pad(k, (0, 0, 0, 0, 0, nk * kc - T)).reshape(
         B, nk, kc, K, D).permute(1, 0, 3, 4, 2).reshape(nk, B * K, D, kc)
-    vt = pad(v, (0, 0, 0, 0, 0, nk * kc - T)).float().reshape(
+    vt = pad(v, (0, 0, 0, 0, 0, nk * kc - T)).reshape(
         B, nk, kc, K, D).permute(1, 0, 3, 2, 4).reshape(nk, B * K, kc, D)
     record = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
+    if record:
+        # whole in f32 under autograd: K's and V's gradients then sum over
+        # the q chunks in f32 and round once
+        kt, vt = kt.float(), vt.float()
     outs = []
     for qi in range(nq):
         q0 = q_offset + qi * qc
@@ -228,7 +233,7 @@ def _q_chunk(q_blk, kt, vt, *, q0: int, chunks: range, kc: int, T: int,
     kts, vts = kt.unbind(0), vt.unbind(0)
     for kj in chunks:
         t0 = kj * kc
-        s = torch.baddbmm(zero, qg, kts[kj], beta=0, alpha=scale)
+        s = torch.baddbmm(zero, qg, kts[kj].float(), beta=0, alpha=scale)
         # the masks, where they cut this pair at all
         if (causal and t0 + kc - 1 > q0) or t0 + kc > T \
                 or (window and t0 <= q0 + qc - 1 - window):
@@ -247,7 +252,7 @@ def _q_chunk(q_blk, kt, vt, *, q0: int, chunks: range, kc: int, T: int,
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = torch.addcmul(p.sum(-1, keepdim=True), l, corr)
-        acc = torch.baddbmm(acc * corr, p, vts[kj])
+        acc = torch.baddbmm(acc * corr, p, vts[kj].float())
         m = m_new
     out = (acc / l.clamp(min=1e-30)).view(B, K, G, qc, D)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, qc, K * G, D)

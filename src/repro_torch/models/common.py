@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import sys
 from typing import Any, Optional, Sequence, Tuple
 
@@ -224,9 +225,9 @@ def constrain(x, *spec, bind_grad: bool = True):
     gradient that flows back through it too (`bind_grad=False` leaves the
     gradient to DTensor, which returns it in the input's placements).
     Two rules are the port's own:
-    a dimension keeps the longest leading run of its axes whose sizes
-    divide it, the rest dropped (GSPMD pads an uneven constraint; DTensor
-    would too, which the port refuses everywhere,
+    a dimension keeps the sub-product of its axes, in mesh order, with the
+    most shards that divides it (`_fit_axes`; GSPMD pads an uneven
+    constraint, DTensor would too, which the port refuses everywhere,
     `launch.sharding.distribute`), and an axis of size 1, which shards
     nothing, is dropped (DTensor would refuse to reshape a dimension it
     marks sharded).  The canonical use is pinning the residual stream to
@@ -238,19 +239,35 @@ def constrain(x, *spec, bind_grad: bool = True):
     dmesh = x.device_mesh
     spec = expand_spec(spec, x.ndim, mesh)
     sizes = mesh_shape(dmesh)
-    fitted = []
-    for dim, a in zip(x.shape, spec):
-        axes = tuple(s for s in (a if isinstance(a, tuple) else (a,) if a
-                                 else ()) if sizes[s] > 1)
-        while axes and dim % int(np.prod([sizes[s] for s in axes])):
-            axes = axes[:-1]
-        fitted.append(axes or None)
+    fitted = [_fit_axes(dim, tuple(s for s in (
+        a if isinstance(a, tuple) else (a,) if a else ()) if sizes[s] > 1),
+        sizes) for dim, a in zip(x.shape, spec)]
     placements = spec_placements(fitted, dmesh)
     if bind_grad and x.requires_grad and torch.is_grad_enabled():
         return _Constrain.apply(x, placements)
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(dmesh, placements)
+
+
+def _fit_axes(dim: int, axes: tuple, sizes) -> Optional[tuple]:
+    """The axes, a subsequence of `axes`, whose sizes' product divides
+    `dim` and is the largest that does; on a tie the longest leading run
+    that divides.  A batch of 256 over ("pod", "data", "model") = 2 x 16
+    x 16 keeps ("data", "model"), one row a rank and `pod` holding the
+    batch twice, where the leading run ("pod", "data") would leave 8 rows
+    a rank: GSPMD pads it to 512 and leaves one."""
+    def shards(sub):
+        return int(np.prod([sizes[s] for s in sub]))
+
+    best = axes
+    while best and dim % shards(best):
+        best = best[:-1]
+    for n in range(len(axes), 0, -1):
+        for sub in itertools.combinations(axes, n):
+            if dim % shards(sub) == 0 and shards(sub) > shards(best):
+                best = sub
+    return best or None
 
 
 class _Constrain(torch.autograd.Function):

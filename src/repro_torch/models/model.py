@@ -24,6 +24,7 @@ encoder and `patches` (B, n_patches, d), put in front of the tokens.
 from __future__ import annotations
 
 import functools
+import types
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -35,7 +36,7 @@ from .attention import (attention_decode, attention_full,
                         encoder_attention, init_attention)
 from .common import (_is_dtensor, constrain, dense_init, dtype_of,
                      on_shards, replicated_like, rms_norm, seq_shard_residual,
-                     shard_kinds, shard_range)
+                     shard_kinds, shard_range, spec_placements)
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
 from .spec import ArchConfig
@@ -114,7 +115,7 @@ def encoder_apply(params: Params, cfg: ArchConfig,
     """frames (B, F, d), the stub frontend's output -> the encoder's
     hidden states, in the frames' dtype (float32 in the reference's
     batches, whatever the weights' dtype)."""
-    x = frames
+    x = constrain(frames, "BATCH")   # as `embed_inputs` places tokens
     for layer in params["encoder"]["layers"]:
         x = constrain(encoder_attention(layer["b0_attn"], cfg, x), "BATCH")
         x = constrain(apply_mlp(layer["b1_mlp"], cfg, x), "BATCH")
@@ -124,8 +125,12 @@ def encoder_apply(params: Params, cfg: ArchConfig,
 def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings, with the patches (cast to the embedding dtype) in
-    front where the config takes them."""
-    x = _lookup(params["embed"], tokens)
+    front where the config takes them.  The tokens take the batch
+    placement first: the lookup's output would move B x S x d where the
+    tokens move B x S (a batch on other axes than the input's, as under
+    pure data parallelism on the 2 x 16 x 16 mesh, is gathered whole
+    before it is cut)."""
+    x = _lookup(params["embed"], constrain(tokens, "BATCH"))
     if cfg.n_patches and patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     return constrain(x, "BATCH")
@@ -147,15 +152,15 @@ def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _repeat_full(params: Params, cfg: ArchConfig, r: int, x, aux, *,
                  mode: str, enc_out, impl, with_aux: bool,
-                 chunk_scans: bool = False):
-    """One repeat of the unit over the full sequence: (x, aux, caches);
-    the MoE blocks' aux loss is added to `aux` only `with_aux` (a serving
-    prefill leaves it out, and with it its launches)."""
+                 chunk_scans: bool = False, sink=None):
+    """One repeat of the unit over the full sequence: (x, aux); the MoE
+    blocks' aux loss is added to `aux` only `with_aux` (a serving prefill
+    leaves it out, and with it its launches).  A prefill hands each
+    block's cache to `sink(name, cache)` as the block returns it."""
     # keep the residual stream batch-sharded (+ sequence-sharded over the
     # TP axis under sequence parallelism)
     seq = "model" if seq_shard_residual() else None
     x = constrain(x, "BATCH", seq)
-    caches = {}
     for name, b, p in _blocks(params, cfg, r):
         c = None
         # a block reads the whole sequence of its shard of the batch
@@ -163,9 +168,10 @@ def _repeat_full(params: Params, cfg: ArchConfig, r: int, x, aux, *,
         if b.kind == "attn":
             x, c = attention_full(p, cfg, x, mode=mode)
         elif b.kind == "cross_attn":
-            kv = encode_cross_kv(p, cfg, enc_out)
-            x = cross_attention_full(p, cfg, x, kv)
-            c = kv if mode == "prefill" else None
+            c = encode_cross_kv(p, cfg, enc_out)
+            x = cross_attention_full(p, cfg, x, c)
+            if mode != "prefill":
+                c = None
         elif b.kind == "mlp":
             x = apply_mlp(p, cfg, x)
         elif b.kind == "moe" and with_aux:
@@ -184,8 +190,9 @@ def _repeat_full(params: Params, cfg: ArchConfig, r: int, x, aux, *,
         # once, which DTensor cannot propagate
         x = constrain(x, "BATCH", seq, bind_grad=False)
         if c is not None:
-            caches[name] = c
-    return x, aux, caches
+            sink(name, c)
+        del c                   # the sink holds what it keeps
+    return x, aux
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -193,7 +200,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None,
             return_aux: bool = False, remat: bool = False,
-            chunk_scans: bool = False):
+            chunk_scans: bool = False, cache_specs=None):
     """Full-sequence pass over tokens (B, S), after `patches` (B, P, d)
     where the config takes them (the logits then cover P + S positions),
     with the encoder run over `frames` (B, F, d) where it has one.
@@ -217,6 +224,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     nothing in mode "train".  `chunk_scans` makes a prefill take the chunk
     scans too (the dry run's prefill, as the reference's prefill scans in
     chunks: the plain sequential scan would step S times a block).
+
+    A prefill writes each block's cache into the stacked leaves as the
+    block returns it (`_stacked_like`, `_write_cache`), so no layer's
+    cache outlives its block.  Under a mesh `cache_specs`, a callable
+    from a tree of the stacked leaves' shapes (objects with `.shape`) to a
+    spec per leaf (`launch.sharding.cache_specs`' form, the reference's
+    `out_shardings`), places them; each layer's cache is cut to that
+    placement as it is written.  Without it a stacked leaf is placed as
+    its repeats' caches are.
     """
     check_supported(cfg)
     if mode not in ("train", "prefill"):
@@ -229,30 +245,84 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = embed_inputs(params, cfg, tokens, patches)
     aux = replicated_like(torch.zeros((), dtype=torch.float32,
                                       device=x.device), x)
-    per_block: Dict[str, list] = {}
+    cache: Cache = {}
+
+    def write(r, name, c):
+        # block `name`'s cache of repeat r into row r of its stacked
+        # leaves, made when the block of repeat 0 returns it
+        if name not in cache:
+            cache[name] = _stacked_like(name, c, cfg.n_repeat, cache_specs)
+        _write_cache(cache[name], r, c)
+
     for r in range(cfg.n_repeat):
         step = functools.partial(_repeat_full, params, cfg, r, mode=mode,
                                  enc_out=enc_out, impl=impl,
                                  with_aux=return_aux,
-                                 chunk_scans=chunk_scans)
+                                 chunk_scans=chunk_scans,
+                                 sink=functools.partial(write, r))
         if remat:
-            x, aux, caches = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 step, x, aux, use_reentrant=False)
         else:
-            x, aux, caches = step(x, aux)
-        for name, c in caches.items():
-            per_block.setdefault(name, []).append(c)
+            x, aux = step(x, aux)
     x = constrain(x, "BATCH")        # the head reads whole sequences
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
-        cache = {name: {key: torch.stack([c[key] for c in cs])
-                        for key in cs[0]}
-                 for name, cs in per_block.items()}
         logits = constrain(x[:, -1:] @ _head(params, cfg), "BATCH", None,
                            "model")
         return (logits, cache, aux) if return_aux else (logits, cache)
     logits = constrain(x @ _head(params, cfg), "BATCH", None, "model")
     return (logits, aux) if return_aux else logits
+
+
+def _stacked_like(name: str, c: Dict[str, torch.Tensor], n: int,
+                  cache_specs=None) -> Dict[str, torch.Tensor]:
+    """An empty (n, ...) leaf for each leaf of block `name`'s cache `c`,
+    in its dtype on its device.  A DTensor leaf's is a DTensor on its
+    mesh, placed by `cache_specs` (see `forward`) where given, else as
+    the leaf is, one dimension on."""
+    specs = {}
+    if cache_specs is not None and any(map(_is_dtensor, c.values())):
+        specs = cache_specs({name: {key: types.SimpleNamespace(
+            shape=torch.Size((n, *t.shape))) for key, t in c.items()}})[name]
+    return {key: _buffer(t, n, specs.get(key)) for key, t in c.items()}
+
+
+def _buffer(t: torch.Tensor, n: int, spec=None) -> torch.Tensor:
+    if not _is_dtensor(t):
+        return t.new_empty((n, *t.shape))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = t.device_mesh
+    placements = spec_placements(spec, mesh) if spec is not None else tuple(
+        Shard(p.dim + 1) if p.is_shard() else Replicate()
+        for p in t.placements)
+    local = [n, *t.shape]
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            if local[p.dim] % mesh.size(i):
+                raise ValueError(f"dimension {p.dim} of {(n, *t.shape)} does"
+                                 f" not divide by mesh dimension {i}")
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(t.to_local().new_empty(local), mesh,
+                              placements, run_check=False)
+
+
+def _write_cache(stacked: Dict[str, torch.Tensor], r: int,
+                 c: Dict[str, torch.Tensor]) -> None:
+    """A block's cache `c` of repeat r into row r of its stacked leaves; a
+    DTensor leaf first takes the stacked leaf's placements (a local slice
+    where it is replicated there, as a K/V whose heads do not divide
+    `model` is, and its cache's sequence is sharded on it)."""
+    for key, t in c.items():
+        buf = stacked[key]
+        if not _is_dtensor(buf):
+            buf[r].copy_(t)
+            continue
+        from torch.distributed.tensor import Shard
+        t = t.redistribute(buf.device_mesh, tuple(
+            Shard(p.dim - 1) if p.is_shard() else p
+            for p in buf.placements))
+        buf.to_local()[r].copy_(t.to_local())
 
 
 def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:

@@ -23,9 +23,10 @@ returns the Switch load-balance loss.
 
 Dispatch groups, the reference's: under a mesh (`common.set_mesh`) the
 tokens are routed in one group per data shard (`_n_dispatch_groups`), each
-with its own capacity, and each rank dispatches and combines its own
-groups on its shards (`local_map`, as GSPMD partitions the reference's
-vmap over groups); the groups meet only where the (G, E, C, d) buffer is
+with its own capacity, placed on the mesh axes that shard the batch
+(`_rows_spec`), and each rank dispatches and combines its own groups on
+its shards (`local_map`, as GSPMD partitions the reference's vmap over
+groups); the groups meet only where the (G, E, C, d) buffer is
 placed onto the experts (`constrain`, expert-parallel when E divides the
 model axis).  Without a mesh there is one group.
 """
@@ -272,6 +273,21 @@ def _per_group(fn, n_out: int, *args):
                      )(*args)
 
 
+def _rows_spec(x):
+    """The mesh axes that shard x's batch (dimension 0), in mesh order, as
+    a spec entry (None for none), where x is a DTensor; else "BATCH".
+    The groups and tokens are placed on those axes, as the rows they come
+    from: a batch of 256 lies on data x model of the 2 x 16 x 16 mesh
+    under pure data parallelism, where "BATCH" would fit 512 groups to
+    pod x data x model, an order of groups no rank holds, and moving them
+    there gathers them whole."""
+    if not _is_dtensor(x):
+        return "BATCH"
+    names = x.device_mesh.mesh_dim_names
+    return tuple(names[m] for m, p in enumerate(x.placements)
+                 if p.is_shard(0)) or None
+
+
 def _as_rows(y, x):
     """y (G, Tg, d) placed over the groups as x (B, S, d) is over its
     batch, so that y reshapes to x's shape shard by shard (G may exceed
@@ -301,22 +317,23 @@ def apply_moe(params: dict, cfg, x: torch.Tensor, *,
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     # (the gradient is left in the reshape's placement: G may shard more
     # ways than the batch, and a gradient placed so cannot be viewed back)
-    hf = constrain(h.reshape(G, Tg, d), "BATCH", bind_grad=False)
+    rows = _rows_spec(x)
+    hf = constrain(h.reshape(G, Tg, d), rows, bind_grad=False)
     logits = constrain(hf.reshape(T, d).float() @ params["router"],
-                       "BATCH")                                 # (T, E)
+                       rows)                                    # (T, E)
     gates, idx = _route(logits, k)
-    gates, idx = (constrain(a.reshape(G, Tg, k), "BATCH")
+    gates, idx = (constrain(a.reshape(G, Tg, k), rows)
                   for a in (gates, idx))
     buf, dest, keep, inv_order = _per_group(
         lambda hh, ii: _dispatch(hh, ii, E, k, C), 4, hf, idx)
     # data -> expert boundary: the resharding below is the all-to-all
     ep = "model" if E % _model_axis_size() == 0 else None
-    buf = constrain(buf, "BATCH", ep)                          # (G, E, C, d)
+    buf = constrain(buf, rows, ep)                             # (G, E, C, d)
     up = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
     gate = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
     out_e = torch.einsum("gecf,efd->gecd", silu(gate) * up, params["w_down"])
-    out_e = constrain(out_e, "BATCH", ep)
-    out_e = constrain(out_e, "BATCH")     # back on the groups' shards
+    out_e = constrain(out_e, rows, ep)
+    out_e = constrain(out_e, rows)        # back on the groups' shards
     y = _per_group(lambda oo, de, ke, io, gg: _combine(oo, de, ke, io, gg, k),
                    1, out_e, dest, keep, inv_order, gates)      # (G, Tg, d)
     out = x + _as_rows(y, x).reshape(B, S, d).to(x.dtype)

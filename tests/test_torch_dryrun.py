@@ -272,3 +272,34 @@ def test_cut_depth_shards_as_the_full_config(arch):
     assert cut_specs["params"]["layers"][0] == \
         full_specs["params"]["layers"][0]
     assert cut_specs["batch"] == full_specs["batch"]
+
+
+def test_pure_dp_batch_on_the_multi_pod_mesh_is_one_row_a_rank(monkeypatch):
+    """C17: under pure data parallelism on a fake 2 x 16 x 16 mesh,
+    `constrain(x, "BATCH")` places a batch of 256 on data x model (pod
+    holding it twice), one row a rank; a reduced granite-moe train pair
+    of batch 256 traced there takes one row a rank into every repeat."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import constrain, set_mesh
+    with fake_mesh((2, 16, 16), ("pod", "data", "model")) as mesh, \
+            FakeTensorMode():
+        x = _dt(mesh, (256, 8), torch.bfloat16,
+                [Shard(0), Shard(0), Replicate()])
+        with set_mesh(mesh, batch_axes_override=("pod", "data", "model")):
+            y = constrain(x, "BATCH")
+        assert tuple(y.placements) == (Replicate(), Shard(0), Shard(0))
+        assert tuple(y.to_local().shape) == (1, 8)
+    rows, real = [], M._repeat_full
+
+    def keep(params, cfg, r, x, aux, **kw):
+        rows.append(x.to_local().shape[0])
+        return real(params, cfg, r, x, aux, **kw)
+
+    monkeypatch.setattr(M, "_repeat_full", keep)
+    cfg = get_config("granite-moe-1b-a400m").reduced(n_repeat=1)
+    r = D.run_pair("granite-moe-1b-a400m", "train_4k", cfg=cfg,
+                   shape=InputShape("train_4k", 16, 256, "train"),
+                   mesh_shape=(2, 16, 16),
+                   mesh_names=("pod", "data", "model"), save=False)
+    assert r["status"] == "ok", r.get("traceback")
+    assert rows and set(rows) == {1}, rows

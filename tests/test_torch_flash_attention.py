@@ -10,7 +10,9 @@ GRAD_REL of each gradient's max|g|.  Also held: the chunk pairs the masks
 leave empty are skipped, bit for bit as if they were not; each q chunk is
 checkpointed where autograd records the call and nowhere else, and the
 dry run's recorder counts the recompute; a DTensor sharded by batch or
-heads is attended on each rank's shards.
+heads is attended on each rank's shards; K and V stay chunk-major in
+their own dtype and a chunk pair takes its kv chunk to f32 (C16b), bit
+for bit the form that took them to f32 whole.
 """
 import functools
 
@@ -19,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.models.attention import flash_attention as jax_flash_attention
 from repro_torch.models import attention as A
@@ -293,3 +296,67 @@ def test_dry_run_memoizes_the_chunked_attention(monkeypatch):
                             shape=shape)
     assert memo == full
     assert 3 * n_memo == len(calls) - n_memo == 3 * 2
+
+
+class _Allocations(TorchDispatchMode):
+    """The (shape, dtype) of every tensor an op makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.made.append((tuple(t.shape), t.dtype))
+        return out
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the many small ops of a chunk loop otherwise
+    wait on the scheduler while the suite's workers hold the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,K,G,D,causal,window,q_offset,chunk", CASES)
+def test_kv_chunks_taken_to_f32_one_pair_at_a_time(
+        B, S, T, K, G, D, causal, window, q_offset, chunk, dtype):
+    """C16b: the output, the lse and (under autograd) the gradients of q, k
+    and v equal, bit for bit, the call on K and V taken to f32 whole
+    beforehand (the form that kept f32 K^T and V of the whole call); in
+    bfloat16 and without autograd no f32 tensor of the chunk-major K^T or
+    V's shape, (nk, B K, D, kc) or (nk, B K, kc, D), is made."""
+    q, k, v = (torch.as_tensor(t).to(dtype)
+               for t in _inputs(B, S, T, K, G, D, seed=S + T + window))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              q_chunk=chunk, kv_chunk=chunk)
+    with torch.no_grad(), _Allocations() as rec:
+        out, lse = A._flash_attention(q, k, v, **kw, state=True)
+    for a, b in zip((out, lse), A._flash_attention(
+            q, k.float(), v.float(), **kw, state=True)):
+        assert torch.equal(a, b)
+    assert torch.equal(A.flash_attention(q, k, v, **kw),
+                       A.flash_attention(q, k.float(), v.float(), **kw))
+    kc, BK = min(chunk, T), B * K
+    nk = -(-T // kc)
+    whole = {((nk, BK, D, kc), torch.float32),
+             ((nk, BK, kc, D), torch.float32)}
+    if dtype == torch.bfloat16:
+        assert not whole & set(rec.made)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        S), dtype=torch.float32).to(dtype)
+    grads = []
+    for up in (lambda t: t, lambda t: t.float()):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        (A.flash_attention(ts[0], up(ts[1]), up(ts[2]), **kw)
+         .float() * cot.float()).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        assert a.dtype == dtype and torch.equal(a, b)

@@ -436,3 +436,31 @@ def test_ambient_mesh_and_constrain_rules():
         assert expand_spec(("pod", ("pod", "model"), "model"), 3, MESH) == (
             None, ("model",), None)
     assert get_mesh() is None and not seq_shard_residual()
+
+
+SIZES3 = {"pod": 2, "data": 16, "model": 16}
+
+
+@pytest.mark.parametrize("dim,axes,sizes,kept", [
+    # C17: pure data parallelism's batch of 256 on 2 x 16 x 16 keeps
+    # data x model, one row a rank, not the leading run pod x data
+    (256, ("pod", "data", "model"), SIZES3, ("data", "model")),
+    (512, ("pod", "data", "model"), SIZES3, ("pod", "data", "model")),
+    # a tie keeps the leading run: pod x data, not pod x model
+    (32, ("pod", "data", "model"), SIZES3, ("pod", "data")),
+    (16, ("pod", "data"), SIZES3, ("data",)),
+    (2, ("pod", "data"), SIZES3, ("pod",)),
+    (1, ("pod", "data", "model"), SIZES3, None),
+    (8, ("data", "model"), SIZES3, None),
+    (256, ("data", "model"), SIZES3, ("data", "model")),
+    (6, ("data", "model"), {"data": 2, "model": 4}, ("data",)),
+    (4, ("data", "model"), {"data": 2, "model": 4}, ("model",)),
+    (8, (), SIZES3, None),
+])
+def test_constrain_keeps_the_largest_dividing_sub_product(dim, axes, sizes,
+                                                          kept):
+    """`constrain`'s fit of a dimension to its axes (`_fit_axes`): the
+    sub-product in mesh order with the most shards that divides it, the
+    leading run on a tie."""
+    from repro_torch.models.common import _fit_axes
+    assert _fit_axes(dim, axes, sizes) == kept

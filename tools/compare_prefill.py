@@ -11,7 +11,9 @@ random weights, the same in both) on one prompt at each of chip_smoke.py's
 served lengths PLENS (37, 300, 600, 1000): per length one warm-up prefill,
 then the median of REPEATS host walls (the host clock to
 `torch.cuda.synchronize`) and the peak of device memory the prefill adds
-over the weights (`torch.cuda.max_memory_allocated`).  Each checkout runs
+over the weights (`torch.cuda.max_memory_allocated`; no earlier
+prefill's result is held when the base is read: one freed during the
+measurement would understate the peak by its size).  Each checkout runs
 in a process of its own, in the order parent, this, this, parent, on the
 same card; the summary gives the mean of each checkout's two runs, and the
 last-position logits of this checkout against the parent's as
@@ -60,8 +62,9 @@ def worker(src: str, save: str) -> dict:
                 torch.cuda.reset_peak_memory_stats()
                 walls = []
                 for _ in range(REPEATS):
+                    out = None          # no earlier result held
                     t0 = time.perf_counter()
-                    out, _ = M.forward(params, cfg, prompt, mode="prefill")
+                    out = M.forward(params, cfg, prompt, mode="prefill")[0]
                     torch.cuda.synchronize()
                     walls.append(1e3 * (time.perf_counter() - t0))
                 key = f"{name}:{S}"
@@ -70,6 +73,7 @@ def worker(src: str, save: str) -> dict:
                     peak_gib=(torch.cuda.max_memory_allocated() - base)
                     / 2**30)
                 logits[key] = out[0, -1].float().cpu()
+                del out                 # before the next length's base
             del params
             torch.cuda.empty_cache()
     torch.save(logits, save)
