@@ -293,12 +293,16 @@ Phases, in order; any failure exits non-zero:
               of kernels/ops.py):
               16a on the card's host, DIST_PAIRS (one pair per rule of
               tests/launch/test_sharding_rules.py, full size, 16 x 16 and
-              two at 2 x 16 x 16) traced by `dryrun.run_pair` on the fake
+              three at 2 x 16 x 16) traced by `dryrun.run_pair` on the fake
               production mesh, DIST_WORKERS processes at once: each `ok`,
               its traced argument bytes equal to the rules'
               (`dryrun.argument_bytes`), DIST_FIT's pairs with
               fits_h100 (pure DP on 2 x 16 x 16, a 32K prefill whose KV
-              heads do not divide `model`); per pair the trace wall,
+              heads do not divide `model`), DIST_CEIL's at or under their
+              ceilings (the 32K prefills of granite's head, whole on every
+              rank, zamba2's Mamba2 blocks and granite-moe's combine,
+              ROADMAP C18-C20);
+              per pair the trace wall,
               arguments and peak GiB per device, fits_h100, the roofline
               terms and collective bytes by kind; a planted fault (DIST_FAULT:
               `model` on a dimension it does not divide) must raise in
@@ -620,6 +624,13 @@ SSM_DEMO_ARGS = ["--preset", "10m", "--steps", "100", "--batch", "8",
 DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
     ("llama31-70b", "train_4k", False,
      "FSDP + TP, sequence-parallel residual (> 3e10 params)"),
+    ("granite-3-8b", "prefill_32k", True,
+     "the 2 x 16 x 16 mesh: a vocab that does not divide model, the head"
+     " whole on every rank"),
+    ("zamba2-2.7b", "prefill_32k", False,
+     "Mamba2 blocks over 32K tokens, in-projection split on model"),
+    ("granite-moe-1b-a400m", "prefill_32k", False,
+     "32K-token MoE dispatch and combine, experts on model"),
     ("yi-6b", "decode_32k", False,
      "KV sequence-sharded on model (4 KV heads < 16)"),
     ("zamba2-2.7b", "decode_32k", False, "KV heads on model (32 KV heads)"),
@@ -646,6 +657,12 @@ DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
 # not divide the mesh (C17), a 32K prefill's caches written sharded (C16)
 DIST_FIT = {("granite-moe-1b-a400m", "train_4k", True),
             ("llava-next-34b", "prefill_32k", False)}
+# 16a's pairs whose peak GiB per device must stay at or under a ceiling:
+# the reference's own dry-run peak x 1.10 (x 1.25 for zamba2, whose
+# unfused in-projection, x and y the reference holds too), C18-C20
+DIST_CEIL = {("granite-3-8b", "prefill_32k", True): 5.89,
+             ("zamba2-2.7b", "prefill_32k", False): 5.36,
+             ("granite-moe-1b-a400m", "prefill_32k", False): 5.52}
 DIST_WORKERS = 4                        # host processes tracing 16a's pairs
 DIST_FAULT = ((1000, 64), ("model", None))   # 1000 % 16 != 0
 DIST_DECODE = ("llama31-8b", MOE_ARCH)  # one decode step each, 16 x 256
@@ -3422,6 +3439,11 @@ def phase_dist_host():
             raise SystemExit(f"16a: {arch} {shape} {r['mesh']}: peak"
                              f" {b['peak'] / 2**30:.2f} GiB does not fit"
                              f" one card")
+        ceil = DIST_CEIL.get((arch, shape, mp))
+        if ceil is not None and b["peak"] / 2**30 > ceil:
+            raise SystemExit(f"16a: {arch} {shape} {r['mesh']}: peak"
+                             f" {b['peak'] / 2**30:.2f} GiB above its"
+                             f" ceiling {ceil} GiB")
     shape, spec = DIST_FAULT
     with make_production_mesh() as mesh, \
             torch._subclasses.fake_tensor.FakeTensorMode():

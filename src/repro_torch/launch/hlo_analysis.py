@@ -22,8 +22,9 @@ and every collective DTensor issues for it.  It records:
     once beside the step's arguments, and `peak_at` names the op, shape
     and dtype of the tensor whose allocation set it.
 
-DTensor's own shape propagation runs ops on fake global-shape tensors;
-those are not the rank's work and are left out.
+DTensor's own shape propagation and strategy search run ops on
+global-shape placeholders; those are not the rank's work and are left
+out.
 
 `StepRecorder.memoized(fn)` traces a function of local tensors once per
 signature (shapes, strides, dtypes and other arguments) under no_grad: a
@@ -73,26 +74,38 @@ _NO_BYTES = {"wait_tensor", "empty", "empty_strided", "new_empty",
 _shadow = threading.local()
 
 
+# ShardingPropagator's methods whose ops run on placeholders of the global
+# shape: the output metadata, and the strategy search, which for an op
+# without a strategy of its own runs the op's decomposition on tensors of
+# the global shape
+_PROPAGATION = ("_propagate_tensor_meta_non_cached",
+                "propagate_op_sharding_non_cached")
+
+
 @contextlib.contextmanager
 def _mark_shape_propagation():
     """Flag DTensor's shape propagation while it runs (its ops run on fake
     global-shape placeholders, not on this rank's shards)."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+    origs = {name: getattr(ShardingPropagator, name) for name in _PROPAGATION}
 
-    def flagged(self, op_schema):
-        depth = getattr(_shadow, "depth", 0)
-        _shadow.depth = depth + 1
-        try:
-            return orig(self, op_schema)
-        finally:
-            _shadow.depth = depth
+    def flagging(orig):
+        def flagged(self, *args, **kwargs):
+            depth = getattr(_shadow, "depth", 0)
+            _shadow.depth = depth + 1
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                _shadow.depth = depth
+        return flagged
 
-    ShardingPropagator._propagate_tensor_meta_non_cached = flagged
+    for name, orig in origs.items():
+        setattr(ShardingPropagator, name, flagging(orig))
     try:
         yield
     finally:
-        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+        for name, orig in origs.items():
+            setattr(ShardingPropagator, name, orig)
 
 
 def _nbytes(t: torch.Tensor) -> int:

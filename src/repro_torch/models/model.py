@@ -101,6 +101,20 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _last_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The prefill's logits, x[:, -1:] (B, 1, d) @ head (d, V).  On
+    DTensors each rank multiplies its own rows by its own vocab columns as
+    plain tensors (`on_shards`), the op plain tensors take: the slice's
+    strides keep `matmul` from folding it into a 2-D product, and
+    DTensor's batched path copies the head expanded over the rank's rows
+    (ROADMAP C18)."""
+    x = x[:, -1:]
+    if not _is_dtensor(x):
+        return x @ head
+    return on_shards("head", torch.matmul, (x, head),
+                     ({"batch": 0}, {"vocab": 1}), ({"batch": 0, "vocab": 2},))
+
+
 def _blocks(params: Params, cfg: ArchConfig, r: int):
     """(name, spec, parameters) of repeat r's blocks, in unit order; a
     shared block gets the one parameter set of `params["shared"]`."""
@@ -268,8 +282,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = constrain(x, "BATCH")        # the head reads whole sequences
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
-        logits = constrain(x[:, -1:] @ _head(params, cfg), "BATCH", None,
-                           "model")
+        logits = constrain(_last_logits(x, _head(params, cfg)), "BATCH",
+                           None, "model")
         return (logits, cache, aux) if return_aux else (logits, cache)
     logits = constrain(x @ _head(params, cfg), "BATCH", None, "model")
     return (logits, aux) if return_aux else logits

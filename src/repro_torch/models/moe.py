@@ -184,15 +184,31 @@ def backward_maps(dest: torch.Tensor, keep: torch.Tensor,
     return token_slot, slot_s[:E * C]
 
 
+# tokens the combine takes at a time; a group of up to this many tokens
+# is one block, the whole-group form
+COMBINE_ROWS = 1024
+
+
 def _combine_group(out_e: torch.Tensor, meta, gates: torch.Tensor,
                    k: int) -> torch.Tensor:
+    """(Tg, d) f32: each token's k expert rows (0 where dropped) weighted
+    by its gates and summed, the reference's form: the rows gathered in
+    token order, taken to f32 and reduced over k.  COMBINE_ROWS tokens at
+    a time into the one output, so that the (Tg·k, d) copies are a
+    block's, each gathered straight from `out_e`: the same ops on every
+    token's rows."""
     dest, keep, inv_order = meta
     Tg = gates.shape[0]
     d = out_e.shape[-1]
-    picked = torch.where(keep[:, None], out_e.reshape(-1, d)[dest], 0)
-    unsorted = picked[inv_order]
-    return torch.einsum("tkd,tk->td", unsorted.reshape(Tg, k, d).float(),
-                        gates)
+    out_flat = out_e.reshape(-1, d)
+    y = out_e.new_empty((Tg, d), dtype=torch.float32)
+    for a in range(0, Tg, COMBINE_ROWS):
+        e = min(a + COMBINE_ROWS, Tg)
+        s = inv_order[a * k:e * k]      # the block's assignments, sorted
+        rows = torch.where(keep[s, None], out_flat[dest[s]], 0)
+        y[a:e] = torch.einsum("tkd,tk->td",
+                              rows.reshape(e - a, k, d).float(), gates[a:e])
+    return y
 
 
 def _n_dispatch_groups(T: int) -> int:

@@ -81,29 +81,43 @@ def _causal_conv_full(x: torch.Tensor, w: torch.Tensor,
 
 def _mamba_inner(cfg, params, h, conv_state=None):
     """Projection, causal conv and split shared by the full and decode
-    paths; `conv_state` (B, d_conv-1, C) given means one decode step."""
+    paths; `conv_state` (B, d_conv-1, C) given means one decode step.
+    A full sequence's conv and silu are taken MAMBA_ROWS rows at a time
+    where autograd does not record them (`_conv_silu_rows`)."""
     di, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    zxbcdt = h @ params["w_in"]
+    w_in = params["w_in"]
+    if conv_state is None and not _records(h, w_in):
+        # a DTensor weight whole on each rank: the split below needs the
+        # product's columns whole, and gathering the (B, S, P) product
+        # instead moves and holds it several times over
+        w_in = constrain(w_in)
+    zxbcdt = h @ w_in
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * ds, nh], dim=-1)
-    xbc = xbc.float()
     if conv_state is not None:
-        seq = torch.cat([conv_state, xbc], dim=1)          # (B, K, C)
+        seq = torch.cat([conv_state, xbc.float()], dim=1)  # (B, K, C)
         conv = torch.einsum("bkc,kc->bc", seq,
                             params["conv_w"])[:, None] + params["conv_b"]
         new_conv_state = seq[:, 1:]
+        xbc = silu(conv)
     else:
-        conv = _causal_conv_full(xbc, params["conv_w"], params["conv_b"])
-        # the last d_conv-1 inputs, right-aligned; a shorter prompt gets
-        # the zeros the conv saw before t = 0 in front (the reference
+        # the last d_conv-1 inputs in f32, right-aligned; a shorter prompt
+        # gets the zeros the conv saw before t = 0 in front (the reference
         # keeps only the prompt's rows there: ROADMAP C7)
         # (a copy of its own: a view would keep the whole (B, S, C)
         # input alive as long as the cache)
         K1 = cfg.d_conv - 1
-        new_conv_state = xbc[:, -K1:].clone()
+        new_conv_state = xbc[:, -K1:].to(torch.float32, copy=True)
         if new_conv_state.shape[1] < K1:
             new_conv_state = pad(new_conv_state, (
                 0, 0, K1 - new_conv_state.shape[1], 0))
-    xbc = silu(conv)
+        w, b = params["conv_w"], params["conv_b"]
+        if _records(xbc, w, b):
+            xbc = silu(_causal_conv_full(xbc.float(), w, b))
+        else:
+            xbc = _on_rows("mamba2_conv", _conv_silu_rows, (xbc,), (w, b))
+            # z of its own: the projection's other columns, which only the
+            # conv read, are let go before the scan
+            z = z.contiguous()
     xs, Bm, Cm = torch.split(xbc, [di, ds, ds], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
@@ -112,8 +126,99 @@ def _mamba_inner(cfg, params, h, conv_state=None):
 
 
 def _mamba_out(params, cfg, x, z, y):
-    y = rms_norm(y * silu(z.float()), params["norm_y"], cfg.norm_eps)
-    return x + y.to(x.dtype) @ params["w_out"]
+    """x + the gated, normed y projected back.  Where autograd does not
+    record it, the gated norm is taken MAMBA_ROWS rows at a time in y's
+    own rows, which it overwrites (`_gated_norm_rows`)."""
+    if _records(y, z, params["norm_y"]):
+        y = rms_norm(y * silu(z.float()), params["norm_y"],
+                     cfg.norm_eps).to(x.dtype)
+    else:
+        y = _on_rows("mamba2_gated_norm", functools.partial(
+            _gated_norm_rows, eps=cfg.norm_eps, dtype=x.dtype), (y, z),
+            (params["norm_y"],))
+    return x + y @ params["w_out"]
+
+
+# tokens the Mamba2 block's conv, skip term and gated norm take at a time
+# where autograd does not record them: every (B, S, C) f32 temporary of
+# the whole-sequence form is then a block's, and a prompt of up to this
+# many tokens is one block, its ops on the whole-sequence form's shapes
+MAMBA_ROWS = 1024
+
+
+def _row_blocks(S: int):
+    for a in range(0, S, MAMBA_ROWS):
+        yield a, min(a + MAMBA_ROWS, S)
+
+
+def _on_rows(name, fn, rows, whole, n_out: int = 1):
+    """fn(*rows, *whole), on each rank's batch rows where they are
+    DTensors (the work is per row): the per-row inputs `rows`
+    batch-sharded and the parameters `whole` replicated first
+    (`constrain`); its `n_out` outputs batch-sharded."""
+    if not _is_dtensor(rows[0]):
+        return fn(*rows, *whole)
+    rows = [constrain(a, "BATCH") for a in rows]
+    whole = [constrain(a) for a in whole]
+    b = {"batch": 0}
+    return on_shards(name, fn, rows + whole,
+                     [b] * len(rows) + [{}] * len(whole), (b,) * n_out)
+
+
+def _conv_silu_rows(xbc: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """silu(_causal_conv_full(xbc.float(), w, b)), (B, S, C) f32, taken
+    MAMBA_ROWS rows at a time into the one output: a block reads its rows
+    and the d_conv - 1 before them (zeros before t = 0) into one f32
+    tensor, and sums the K products in its output rows in place, in the
+    whole form's order (0 + the first, then the rest, then b), so every
+    element's arithmetic is the whole form's."""
+    B, S, C = xbc.shape
+    K1 = w.shape[0] - 1
+    out = xbc.new_empty((B, S, C), dtype=torch.float32)
+    for a, e in _row_blocks(S):
+        lo = max(a - K1, 0)
+        xp = xbc.new_zeros((B, e - a + K1, C), dtype=torch.float32)
+        xp[:, K1 - (a - lo):] = xbc[:, lo:e]
+        acc = out[:, a:e].zero_()
+        for j in range(K1 + 1):
+            acc.add_(xp[:, j:j + e - a] * w[j])
+        del xp
+        acc.add_(b).mul_(torch.sigmoid(acc))               # silu
+    return out
+
+
+def _plus_Dx(y: torch.Tensor, xh: torch.Tensor,
+             D: torch.Tensor) -> torch.Tensor:
+    """y + xh D, the scan's skip term (B, S, nh, hd); added into y in
+    place, MAMBA_ROWS rows at a time, where autograd does not record
+    it."""
+    if _records(y, xh, D):
+        return y + xh * D[None, None, :, None]
+    return _on_rows("mamba2_skip", _plus_Dx_rows, (y, xh), (D,))
+
+
+def _plus_Dx_rows(y, xh, D):
+    D = D[None, None, :, None]
+    for a, e in _row_blocks(y.shape[1]):
+        y[:, a:e].add_(xh[:, a:e] * D)
+    return y
+
+
+def _gated_norm_rows(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                     *, eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """rms_norm(y * silu(z.float()), scale, eps).to(dtype), (B, S, di),
+    MAMBA_ROWS rows at a time: each block's products in y's rows in place
+    (y is overwritten), in `rms_norm`'s order, then rounded into the
+    output."""
+    out = y.new_empty(y.shape, dtype=dtype)
+    for a, e in _row_blocks(y.shape[1]):
+        yb, g = y[:, a:e], z[:, a:e].to(torch.float32, copy=True)
+        yb.mul_(g.mul_(torch.sigmoid(g)))                  # y * silu(z)
+        del g
+        var = (yb * yb).mean(dim=-1, keepdim=True)
+        out[:, a:e] = yb.mul_(torch.rsqrt(var + eps)).mul_(scale.float())
+    return out
 
 
 def _blocks(a: torch.Tensor, L: int, fill: float = 0.0) -> torch.Tensor:
@@ -126,20 +231,13 @@ def _blocks(a: torch.Tensor, L: int, fill: float = 0.0) -> torch.Tensor:
 
 def _scan_on_shards(name, fn, rows, whole, init_state):
     """A chunk scan of DTensors: each rank scans its own batch rows (the
-    scan is per row), the per-row inputs `rows` batch-sharded and the
-    parameters `whole` replicated first (`constrain`)."""
-    rows = [constrain(a, "BATCH") for a in rows]
-    whole = [constrain(a) for a in whole]
-    b = {"batch": 0}
-    args, dims = rows + whole, [b] * len(rows) + [{}] * len(whole)
-    if init_state is not None:
-        args.append(constrain(init_state, "BATCH"))
-        dims.append(b)
-
-    def local(*a):
-        init = a[len(rows) + len(whole)] if init_state is not None else None
-        return fn(*a[:len(rows) + len(whole)], init_state=init)
-    return on_shards(name, local, args, dims, (b, b))
+    scan is per row), `init_state` with them (`_on_rows`)."""
+    if init_state is None:
+        return _on_rows(name, fn, rows, whole, n_out=2)
+    n = len(rows)
+    return _on_rows(name, lambda *a: fn(*a[:n], *a[n + 1:],
+                                        init_state=a[n]),
+                    (*rows, init_state), whole, n_out=2)
 
 
 def _carry(s0: torch.Tensor, decay: torch.Tensor, inc: torch.Tensor):
@@ -217,7 +315,7 @@ def mamba2_chunk_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     state = _grouped(lambda *a: _mamba2_chunks(*a, Lc), step, S, y, s0,
                      (xh, Bm, Cm, dt), (A,))
     # D x added in place: one whole-sequence tensor fewer
-    return y.add_(xh * D[None, None, :, None]), state
+    return _plus_Dx(y, xh, D), state
 
 
 def _mamba2_chunks(xh, Bm, Cm, dt, A, s0, Lc: int):
@@ -235,13 +333,19 @@ def _mamba2_chunks(xh, Bm, Cm, dt, A, s0, Lc: int):
     # back-propagate as inf * 0 = NaN)
     seg = torch.cumsum(torch.where(past, lA[:, :, :, None], 0.0), dim=2)
     G = torch.where(tri, torch.exp(seg), 0.0)      # weight(t -> q)
-    att = torch.einsum("bcqs,bcts->bcqt", C_c, B_c)
-    y = torch.einsum("bcqtn,bctnp->bcqnp", att[..., None] * G, xt)
     # chunk c's own contribution to the state it hands on: t decays by
     # exp(seg[last, t])
     inc = torch.einsum("bctnp,bcts->bcnps",
                        xt * torch.exp(seg[:, :, -1])[..., None], B_c)
     cs = lA[:, :, :1] + seg[:, :, :, 0]            # inclusive, (B,n,Lc,nh)
+    del seg             # (B, n, Lc, Lc, nh), let go before the products
+    att = torch.einsum("bcqs,bcts->bcqt", C_c, B_c)
+    # the pairs' weights taken into G in place where autograd does not
+    # record them
+    AG = att[..., None] * G if _records(att, G) else G.mul_(att[..., None])
+    del G
+    y = torch.einsum("bcqtn,bctnp->bcqnp", AG, xt)
+    del AG
     starts, state = _carry(s0, torch.exp(cs[:, :, -1])[..., None, None],
                            inc)
     # inter-chunk: y_q += exp(cs_q) C_q . state entering the chunk
@@ -258,14 +362,15 @@ def mamba2_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
     picks its version) on xt = x dt and lA = dt A, y gaining D x as in the
     chunk scan."""
     B, S, _ = x.shape
-    h = rms_norm(x, params["norm"], cfg.norm_eps)
-    z, xh, Bm, Cm, dt, A, conv_state = _mamba_inner(cfg, params, h)
+    z, xh, Bm, Cm, dt, A, conv_state = _mamba_inner(
+        cfg, params, rms_norm(x, params["norm"], cfg.norm_eps))
     if mode == "train" or chunk_scans:
         y, state = mamba2_chunk_scan(xh, Bm, Cm, dt, A, params["D"])
     else:
         y, state = ops.ssd_scan(xh * dt[..., None], Bm, Cm, dt * A,
                                 impl=impl)
-        y = y + xh * params["D"][None, None, :, None]
+        y = _plus_Dx(y, xh, params["D"])
+    del xh, Bm, Cm, dt      # the conv's output, let go before the epilogue
     out = _mamba_out(params, cfg, x, z, y.reshape(B, S, cfg.d_inner))
     cache = {"conv": conv_state, "ssm": state} if mode == "prefill" else None
     return out, cache

@@ -25,6 +25,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro.core.hardware import V5E_HBM_BW, V5E_ICI_BW, V5E_PEAK_FLOPS
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun as D
+from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch.hlo_analysis import (StepRecorder, collective_bytes,
                                              roofline_from_counts,
                                              roofline_terms)
@@ -107,6 +108,64 @@ def test_per_rank_flops(sharded):
     assert rec.flops == 2 * M * K * N // (256 if sharded else 1)
     assert rec.records == []
     assert rec.peak == M * N * 2 // (256 if sharded else 1)
+
+
+class _Hidden(StepRecorder):
+    """A StepRecorder that also lists the ops it leaves out as DTensor's
+    shape propagation and strategy search."""
+
+    def __init__(self):
+        super().__init__()
+        self.hidden = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if getattr(H._shadow, "depth", 0):
+            self.hidden.append(func._overloadpacket.__name__)
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+def test_strategy_search_is_not_a_ranks_work(monkeypatch):
+    """An elementwise op without a sharding strategy of its own (hardswish
+    on torch 2.13, softplus on 2.11) makes DTensor's strategy search run
+    its decomposition on tensors of the global (256, w) shape.  The
+    recorder leaves those ops out and counts what the rank runs: its
+    shard's op, and for a Partial input the all-reduce DTensor issues
+    first.  With the search not flagged, its global-shape temporaries
+    would set the peak.  (Each trace has a width of its own, so that no
+    cached strategy spares it the search.)"""
+    from torch.nn.functional import hardswish, softplus
+
+    def trace(fn, width, placements):
+        with make_production_mesh() as mesh, FakeTensorMode():
+            x = _dt(mesh, (256, width), torch.bfloat16, placements)
+            rec = _Hidden()
+            rec.exclude(x)
+            with rec:
+                y = fn(x)
+            search = set(rec.hidden) - {fn.__name__, "empty", "empty_strided"}
+            return rec, tuple(y.to_local().shape), search
+
+    for fn in (hardswish, softplus):
+        try:
+            rec, local, search = trace(fn, 64, [Shard(0), Shard(1)])
+        except NotImplementedError:             # no strategy, no search
+            continue
+        if search:                              # the decomposition ran
+            break
+    else:
+        pytest.fail("no candidate op takes DTensor's strategy search")
+    assert local == (16, 4) and rec.records == []
+    assert rec.peak == 16 * 4 * 2, rec.peak_at
+    assert rec.peak_at == f"{fn.__name__} -> (16, 4) torch.bfloat16"
+    assert rec.bytes_accessed == 2 * 16 * 4 * 2
+    rec, local, search = trace(fn, 96, [Partial(), Replicate()])
+    assert search and local == (256, 96)
+    assert rec.records == [("all-reduce", 256 * 96 * 2)]
+    assert rec.peak == 2 * 256 * 96 * 2, rec.peak_at    # reduced, output
+    monkeypatch.setattr(H, "_PROPAGATION", H._PROPAGATION[:1])
+    rec, _, search = trace(fn, 128, [Shard(0), Shard(1)])
+    assert search and rec.peak >= 256 * 128 * 2, rec.peak_at
+    assert "(256, 128)" in rec.peak_at
 
 
 def test_fake_group_destroyed_and_live_group_refused():

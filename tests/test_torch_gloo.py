@@ -20,10 +20,19 @@ weights, distributes them by the rules and runs:
     on `data`, the vocabulary of the logits on `model`): the loss and every
     gradient leaf through the vocab-parallel cross-entropy, whose gradient
     must reach the head's constraint on its vocab shard (Shard(2));
+  * a no-grad prefill under the serve rules, its caches written in
+    `cache_specs`' placements: granite-3-8b (one repeat) with its vocab
+    on `model` and with an odd vocab the head keeps whole (each rank's
+    last rows times its own vocab columns), and zamba2-2.7b (one repeat)
+    in Mamba2 row blocks of 4 over 11 tokens (the conv with its halo, the
+    skip term and the gated norm on each rank's rows; the in-projection's
+    weight gathered): the last position's logits and every cache leaf;
 
 and holds them to the same calls on plain tensors (one group, no remat)
 within 1e-5 of each tensor's largest magnitude.
 """
+import dataclasses
+import functools
 import socket
 import time
 
@@ -41,6 +50,7 @@ from repro_torch.launch.sharding import (batch_specs, cache_specs,
                                          distribute, param_specs, pure_dp)
 from repro_torch.models import common
 from repro_torch.models import model as M
+from repro_torch.models import ssm
 from repro_torch.models.common import set_mesh
 from repro_torch.training.optimizer import tree_leaves
 from repro_torch.training.train import loss_and_grads
@@ -115,6 +125,33 @@ def _train(mesh, arch, n_repeat=2, wide=None):
     return errs
 
 
+def _prefill(mesh, arch, **replace):
+    cfg = dataclasses.replace(get_config(arch).reduced(n_repeat=1),
+                              **replace)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, S = 4, 11
+    tokens = torch.randint(0, cfg.vocab, (B, S),
+                           generator=torch.Generator().manual_seed(3))
+    dparams = distribute(params, param_specs(cfg, params, mesh,
+                                             mode="serve"), mesh)
+    dtok = distribute(tokens, batch_specs(mesh, B) + (None,), mesh)
+    with torch.no_grad():
+        want, want_cache = M.forward(params, cfg, tokens, mode="prefill",
+                                     chunk_scans=True)
+        with set_mesh(mesh):
+            got, cache = M.forward(dparams, cfg, dtok, mode="prefill",
+                                   chunk_scans=True, cache_specs=functools.
+                                   partial(cache_specs, cfg, mesh=mesh,
+                                           batch=B))
+    tag = f"{arch} (vocab {cfg.vocab}) prefill"
+    errs = {f"{tag} logits": _rel(got, want)}
+    assert sorted(cache) == sorted(want_cache)
+    for n, blk in want_cache.items():
+        for k, t in blk.items():
+            errs[f"{tag} cache {n}/{k}"] = _rel(cache[n][k], t)
+    return errs
+
+
 def _worker(rank, port, out):
     torch.set_num_threads(1)        # four processes share the host's cores
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -122,6 +159,7 @@ def _worker(rank, port, out):
     merges, head_grads = [], []
     real = ops.gather_states
     real_bind = common._Constrain.backward
+    rows = ssm.MAMBA_ROWS
 
     def counted(x, mesh, dims):
         merges.append(list(dims))   # the mesh dimensions that shard T
@@ -142,11 +180,17 @@ def _worker(rank, port, out):
                      **_train(mesh, "zamba2-2.7b", 1)})
         common._Constrain.backward = staticmethod(bind)
         errs.update(_train(mesh, "yi-6b", wide=False))
+        common._Constrain.backward = real_bind
+        errs.update({**_prefill(mesh, "granite-3-8b"),
+                     **_prefill(mesh, "granite-3-8b", vocab=515)})
+        ssm.MAMBA_ROWS = 4
+        errs.update(_prefill(mesh, "zamba2-2.7b"))
         if rank == 0:
             torch.save({"errs": errs, "merges": merges,
                         "head_grads": head_grads}, out)
     finally:
         common._Constrain.backward = real_bind
+        ssm.MAMBA_ROWS = rows
         dist.destroy_process_group()
 
 

@@ -101,14 +101,15 @@ def test_model_prefill_caches_own_their_rows():
 def test_grouped_scans_lower_the_traced_prefill_peak(monkeypatch, arch):
     """A reduced prefill of 8192 tokens traced on a fake (2, 4) mesh (the
     dry run's `chunk_scans`): grouped, its peak is below the all-at-once
-    form's (forced by letting `_records` say autograd records), every
-    other number but the trace wall equal."""
+    form's (forced by a group longer than the prompt), every other number
+    but the trace wall equal."""
     cfg = get_config(arch).reduced(n_repeat=1)
     shape = InputShape("prefill_8k", 8192, 8, "prefill")
     kw = dict(cfg=cfg, shape=shape, mesh_shape=(2, 4),
               mesh_names=("data", "model"), save=False)
     grouped = D.run_pair(arch, "prefill_8k", **kw)
-    monkeypatch.setattr(ssm, "_records", lambda *a: True)
+    monkeypatch.setattr(ssm, "MAMBA_GROUP", 8192)
+    monkeypatch.setattr(ssm, "WKV_GROUP", 8192)
     whole = D.run_pair(arch, "prefill_8k", **kw)
     assert grouped["status"] == whole["status"] == "ok"
     gb, wb = grouped["bytes_per_device"], whole["bytes_per_device"]
