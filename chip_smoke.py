@@ -301,7 +301,11 @@ Phases, in order; any failure exits non-zero:
               heads do not divide `model`), DIST_CEIL's at or under their
               ceilings (the 32K prefills of granite's head, whole on every
               rank, zamba2's Mamba2 blocks and granite-moe's combine,
-              ROADMAP C18-C20);
+              ROADMAP C18-C20, C22), DIST_FLOPS' flops a rank at or under
+              theirs (each `model` rank on its share of the heads: GQA
+              whose KV heads do not divide `model`, zamba2's Mamba2
+              heads, C21-C22) and DIST_COLL's collective bytes a device at
+              or under theirs (grok's decode, C23);
               per pair the trace wall,
               arguments and peak GiB per device, fits_h100, the roofline
               terms and collective bytes by kind; a planted fault (DIST_FAULT:
@@ -328,9 +332,10 @@ Phases, in order; any failure exits non-zero:
               pools' shapes (SEQ_SHAPES, bf16) with its cache cut into 2
               and 4 T-pieces, as ranks hold a sequence-sharded cache: each
               piece through ops.decode_piece (the kernel at local lengths,
-              its f32 output and lse), the pieces' states stacked where
-              ranks all-gather them and merged by ops.merge_pieces, the
-              code each rank runs, within TOL of the unsliced
+              its f32 output and lse), the pieces' states stacked and
+              merged by ops.merge_states, the merge that ops.merge_ranks
+              runs on each rank, its two all-reduces a reduction over the
+              stack (ops.reduce_stacked), within TOL of the unsliced
               kernel and of the plain version; pieces that a short
               sequence leaves empty; exactly one launch a piece (counts
               set to 0 just before, read just after); eager ms beside the
@@ -627,8 +632,10 @@ DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
     ("granite-3-8b", "prefill_32k", True,
      "the 2 x 16 x 16 mesh: a vocab that does not divide model, the head"
      " whole on every rank"),
+    ("granite-3-8b", "prefill_32k", False,
+     "GQA, 8 KV heads < 16: q heads split by KV group over model"),
     ("zamba2-2.7b", "prefill_32k", False,
-     "Mamba2 blocks over 32K tokens, in-projection split on model"),
+     "Mamba2 blocks over 32K tokens, their heads split on model"),
     ("granite-moe-1b-a400m", "prefill_32k", False,
      "32K-token MoE dispatch and combine, experts on model"),
     ("yi-6b", "decode_32k", False,
@@ -644,7 +651,8 @@ DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
     ("grok-1-314b", "decode_32k", False,
      "serve keeps FSDP (314 B params), TP inside its 8 experts"),
     ("llava-next-34b", "prefill_32k", False,
-     "serve drops FSDP (34 B), 2880-patch prefix"),
+     "serve drops FSDP (34 B), 2880-patch prefix, 7 q heads a KV group"
+     " straddling 2 ranks: q rows split over model"),
     ("whisper-medium", "decode_32k", False,
      "encoder-decoder: cross-attention cache, KV heads on model"),
     ("whisper-medium", "decode_32k", True,
@@ -658,11 +666,19 @@ DIST_PAIRS = [      # the longest trace first: the pool's wall is its own
 DIST_FIT = {("granite-moe-1b-a400m", "train_4k", True),
             ("llava-next-34b", "prefill_32k", False)}
 # 16a's pairs whose peak GiB per device must stay at or under a ceiling:
-# the reference's own dry-run peak x 1.10 (x 1.25 for zamba2, whose
-# unfused in-projection, x and y the reference holds too), C18-C20
+# the reference's own dry-run peak x 1.10 (x 1.05 for zamba2), C18-C22
 DIST_CEIL = {("granite-3-8b", "prefill_32k", True): 5.89,
-             ("zamba2-2.7b", "prefill_32k", False): 5.36,
+             ("zamba2-2.7b", "prefill_32k", False): 4.50,
              ("granite-moe-1b-a400m", "prefill_32k", False): 5.52}
+# 16a's pairs whose flops a rank must stay at or under a ceiling: each
+# model rank computes its share of the heads (C21, C22)
+DIST_FLOPS = {("granite-3-8b", "prefill_32k", False): 1.33e14,
+              ("granite-3-8b", "prefill_32k", True): 6.65e13,
+              ("llava-next-34b", "prefill_32k", False): 4.7e14,
+              ("zamba2-2.7b", "prefill_32k", False): 3.5e13}
+# 16a's pairs whose collective bytes a device must stay at or under a
+# ceiling (C23)
+DIST_COLL = {("grok-1-314b", "decode_32k", False): 0.46e9}
 DIST_WORKERS = 4                        # host processes tracing 16a's pairs
 DIST_FAULT = ((1000, 64), ("model", None))   # 1000 % 16 != 0
 DIST_DECODE = ("llama31-8b", MOE_ARCH)  # one decode step each, 16 x 256
@@ -3444,6 +3460,19 @@ def phase_dist_host():
             raise SystemExit(f"16a: {arch} {shape} {r['mesh']}: peak"
                              f" {b['peak'] / 2**30:.2f} GiB above its"
                              f" ceiling {ceil} GiB")
+        ceil = DIST_FLOPS.get((arch, shape, mp))
+        log(f"  16a {arch} {shape} {r['mesh']}: flops a rank"
+            f" {r['cost']['flops']:.4e}" + (f" (ceiling {ceil:.3e})"
+                                            if ceil else ""))
+        if ceil is not None and r["cost"]["flops"] > ceil:
+            raise SystemExit(f"16a: {arch} {shape} {r['mesh']}: flops a"
+                             f" rank {r['cost']['flops']:.4e} above its"
+                             f" ceiling {ceil:.3e}")
+        ceil = DIST_COLL.get((arch, shape, mp))
+        if ceil is not None and r["collectives"]["total"] > ceil:
+            raise SystemExit(f"16a: {arch} {shape} {r['mesh']}: collective"
+                             f" bytes {r['collectives']['total'] / 1e9:.4f}"
+                             f" GB above its ceiling {ceil / 1e9} GB")
     shape, spec = DIST_FAULT
     with make_production_mesh() as mesh, \
             torch._subclasses.fake_tensor.FakeTensorMode():
@@ -3608,14 +3637,16 @@ def t_slices(T, R):
 
 
 def sliced_decode(q, k, v, lengths, R):
-    """What R ranks of a cache sharded along T run, with the all-gather
-    replaced by a stack: each rank's `ops.decode_piece` (the kernel over
-    its T-piece at local lengths, f32 output and lse) and
-    `ops.merge_pieces` over the R states; q's dtype."""
+    """What R ranks of a cache sharded along T run, with their pieces
+    stacked: each rank's `ops.decode_piece` (the kernel over its T-piece
+    at local lengths, f32 output and lse) and `ops.merge_states`, the
+    merge of `ops.merge_ranks`, its all-reduces a reduction over the R
+    stacked states (`ops.reduce_stacked`); q's dtype."""
     states = [ops.decode_piece(q, k[:, t0:t1], v[:, t0:t1], lengths, t0,
                                t1 - t0)
               for t0, t1 in t_slices(k.shape[1], R)]
-    return ops.merge_pieces(torch.stack(states), q.dtype)
+    return ops.merge_states(torch.stack(states), ops.reduce_stacked,
+                            q.dtype)[0]
 
 
 def phase_seq_merge():

@@ -11,10 +11,10 @@ DTensor arguments: each rank runs on its local shards (`on_shards`, a
 heads sharded, the scans' S whole; the result is a DTensor placed as the
 query.  The decode's KV sequence T may be sharded too: each rank attends
 to its T-shard and keeps the softmax state with the output
-(`decode_piece`), the states are all-gathered over the mesh dimensions
-that shard T, and `merge_pieces` merges them (the kernel on the card, the
-plain version on the CPU or under impl="plain", alike).  Any other placement raises
-NotImplementedError, on the card and off it.
+(`decode_piece`: the kernel on the card, the plain version on the CPU or
+under impl="plain"), and the pieces are merged over the mesh dimensions
+that shard T by two all-reduces of one piece's size (`merge_ranks`).
+Any other placement raises NotImplementedError, on the card and off it.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ..models.common import (_is_dtensor, gather_states, on_shards,
+from ..models.common import (_is_dtensor, all_reduce, on_shards,
                              replicated_like, seq_dims, shard_kinds,
                              shard_range, whole_where_seq)
 from . import flash_decode as _fd
@@ -57,8 +57,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
             def fn(*local):
                 piece = decode_piece(*local, t0, nt, impl=impl)
-                return merge_pieces(gather_states(piece, mesh, seq),
-                                    local[0].dtype)
+                return merge_ranks(piece, mesh, seq, local[0].dtype)
         else:
             fn = _plain_decode if plain else _fd.flash_decode
         return on_shards("flash_decode", fn, args, dims, dims[:1])
@@ -77,8 +76,8 @@ def decode_piece(q, k, v, lengths, t0: int, nt: int, *,
     """One rank's share of a decode over a KV cache whose sequence is
     sharded: k, v (B, nt, K, D) hold the keys [t0, t0 + nt), attended at
     the local lengths clamp(lengths - t0, 0, nt).  Returns the f32 output
-    with the lse appended, (B, H, D + 1), what the ranks all-gather and
-    `merge_pieces` merges.  The kernel on the card, the plain version on
+    with the lse appended, (B, H, D + 1), what `merge_ranks` merges across
+    the ranks.  The kernel on the card, the plain version on
     the CPU or under impl="plain"."""
     lengths = (lengths - t0).clamp(0, nt)
     if _plain(impl, q, "decode_attention"):
@@ -89,27 +88,48 @@ def decode_piece(q, k, v, lengths, t0: int, nt: int, *,
     return torch.cat([out, lse[..., None]], -1)
 
 
-def merge_pieces(states: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """R pieces' `decode_piece` results, (R, B, H, D + 1), merged into the
-    decode over their union, (B, H, D) in `dtype`."""
-    return merge_decode(states[..., :-1], states[..., -1]).to(dtype)
+def merge_states(pieces: torch.Tensor, reduce,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The decode over the union of R disjoint pieces of the keys, from
+    `decode_piece` results (..., D + 1) that `reduce(t, op)` reduces
+    ("max" or "sum") over the R pieces: the lses' max, then each piece's
+    output and weight w = exp(lse - max), summed; out = sum w out / sum
+    w, 0 where every lse is -inf (no piece attends to anything, as the
+    plain version's zero output).  (..., D) in `dtype`."""
+    out, lse = pieces[..., :-1], pieces[..., -1]
+    top = reduce(lse, "max")
+    w = torch.exp(lse - torch.where(torch.isfinite(top), top, 0.0))
+    both = reduce(torch.cat([w[..., None] * out, w[..., None]], -1), "sum")
+    num, den = both[..., :-1], both[..., -1:]
+    return torch.where(den > 0, num / den.clamp(min=1e-30), 0.0).to(dtype)
+
+
+def merge_ranks(piece: torch.Tensor, mesh, dims,
+                dtype: torch.dtype) -> torch.Tensor:
+    """`merge_states` of the pieces that the ranks of mesh dimensions
+    `dims` hold, one `decode_piece` result (B, H, D + 1) each, computed on
+    every rank by two all-reduces (functional collectives) of one piece's
+    size.  (B, H, D) in `dtype`."""
+    groups = [(mesh, m) for m in dims]
+    return merge_states(piece, lambda t, op: all_reduce(t, op, groups),
+                        dtype)
+
+
+def reduce_stacked(t: torch.Tensor, op: str) -> torch.Tensor:
+    """t reduced by `op` ("max" or "sum") over its leading dimension, kept
+    as a dimension of 1: `merge_ranks`' all-reduce where the R pieces are
+    stacked on one device."""
+    return t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
 
 
 def merge_decode(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
     """Attention outputs over R disjoint pieces of the keys merged into the
     output over their union: outs (R, ..., D), lses (R, ...) (each piece's
     softmax state, as `flash_decode_ref(return_lse=True)` gives it: (R, B,
-    H, D) and (R, B, H) for decode) -> (..., D) f32.
-    w_r = exp(lse_r - max_r lse_r), out = sum_r w_r out_r / sum_r w_r; 0
-    where every lse is -inf (no piece attends to anything), as the plain
-    version's zero output."""
-    outs, lses = outs.float(), lses.float()
-    top = lses.amax(0)
-    w = torch.exp(lses - torch.where(torch.isfinite(top), top, 0.0))
-    den = w.sum(0)
-    num = (w[..., None] * outs).sum(0)
-    return torch.where(den[..., None] > 0,
-                       num / den.clamp(min=1e-30)[..., None], 0.0)
+    H, D) and (R, B, H) for decode) -> (..., D) f32, by `merge_states`
+    over the stacked pieces."""
+    pieces = torch.cat([outs.float(), lses.float()[..., None]], -1)
+    return merge_states(pieces, reduce_stacked, torch.float32)[0]
 
 
 def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,

@@ -108,6 +108,35 @@ def _mark_shape_propagation():
             setattr(ShardingPropagator, name, orig)
 
 
+@contextlib.contextmanager
+def _gpu_alltoall():
+    """DTensor's redistribution from a shard of one dimension to a shard of
+    another runs an all-to-all on a GPU mesh, but on a CPU mesh it
+    all-gathers the tensor and keeps a chunk (its fallback for gloo).  The
+    dry run's fake mesh is a CPU mesh that stands for GPUs: inside the
+    block the exchange is the all-to-all (a functional collective, which
+    the recorder records as such), with the same result."""
+    from torch.distributed.tensor import placement_types
+    # the name DTensor's Shard -> Shard redistribution calls: without it
+    # the yardstick would change unseen
+    orig = placement_types.shard_dim_alltoall
+
+    def alltoall(x, gather_dim, shard_dim, mesh, mesh_dim):
+        import torch.distributed._functional_collectives as funcol
+        n = mesh.size(mesh_dim)
+        y = funcol.all_to_all_single(
+            torch.stack(x.chunk(n, dim=shard_dim)).contiguous(), None, None,
+            (mesh, mesh_dim))
+        y = y.wait() if hasattr(y, "wait") else y
+        return torch.cat(y.unbind(0), dim=gather_dim)
+
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -139,6 +168,7 @@ class StepRecorder(TorchDispatchMode):
 
     def __enter__(self):
         self._stack.enter_context(_mark_shape_propagation())
+        self._stack.enter_context(_gpu_alltoall())
         # a tensor autograd saves is held through a detached alias, whose
         # storage then counts until the graph frees it
         self._stack.enter_context(torch.autograd.graph.saved_tensors_hooks(

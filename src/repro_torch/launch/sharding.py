@@ -120,15 +120,19 @@ def tree_map_with_path(fn: Callable, tree, prefix: str = ""):
 
 
 def param_specs(cfg: ArchConfig, params: Any, mesh, *,
-                mode: str = "train") -> Any:
+                mode: str = "train", fsdp: Optional[str] = "auto") -> Any:
     """Spec tree matching a params tree (tensors of any device, meta
     included: only shapes are read).
 
     mode="train": FSDP over `data` + TP over `model`, FSDP only over ~8B
     params; mode="serve": TP over `model` only, unless the TP-sharded bf16
     weights pass 6e9 bytes per device (command-r, grok keep FSDP); small
-    training models (`pure_dp`) replicate everything."""
-    if mode == "train":
+    training models (`pure_dp`) replicate everything.  `fsdp` other than
+    "auto" names the axis FSDP takes (None: none) whatever the size, as a
+    reduced config stands in for a full one."""
+    if fsdp != "auto":
+        pass
+    elif mode == "train":
         fsdp = "data" if cfg.param_count() > 8e9 else None
     else:
         per_chip = 2.0 * cfg.param_count() / max(

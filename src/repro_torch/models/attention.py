@@ -22,9 +22,10 @@ import torch
 from ..kernels import ops
 from torch.utils.checkpoint import checkpoint
 
-from .common import (_is_dtensor, apply_rope, constrain, dense_init, dot,
-                     dtype_of, gather_states, heads_spec, on_shards, pad,
-                     rms_norm, roll, seq_dims, shard_kinds, shard_range,
+from .common import (_is_dtensor, all_to_all, apply_rope, axis_size,
+                     batch_axes, constrain, dense_init, dot, dtype_of,
+                     heads_spec, on_shards, onto_rows, pad, rms_norm,
+                     roll, seq_dims, shard_kinds, shard_range,
                      whole_where_seq)
 
 NEG_INF = -1e30
@@ -52,40 +53,77 @@ def init_attention(generator: torch.Generator, cfg, device: torch.device,
     return p
 
 
-def _split_heads(t: torch.Tensor, n: int, hd: int,
-                 kv_heads: int) -> torch.Tensor:
+def _split_heads(t: torch.Tensor, n: int, hd: int, spec, *,
+                 bind_grad: bool = True) -> torch.Tensor:
     """(B, S, n * hd) -> (B, S, n, hd).  Under a mesh the projection's
-    columns are first placed whole KV groups to a shard: over `model`
-    where the `kv_heads` divide it, else replicated (DTensor cannot split
-    a sharded dimension whose shards straddle heads or GQA groups)."""
+    columns are first placed whole heads to a shard: over `model` where
+    `spec` (`heads_spec`, `_q_spec`) names it, else replicated (DTensor
+    cannot split a sharded dimension whose shards straddle heads).
+    `bind_grad=False` leaves the gradient to DTensor (`constrain`)."""
     B, S = t.shape[:2]
-    t = constrain(t, "BATCH", None, heads_spec(kv_heads))
+    t = constrain(t, "BATCH", None, spec, bind_grad=bind_grad)
     return t.reshape(B, S, n, hd)
 
 
-def _merge_heads(out: torch.Tensor, kv_heads: int) -> torch.Tensor:
-    """(B, S, H, hd) -> (B, S, H * hd), placed as `_split_heads` places
+def _merge_heads(out: torch.Tensor, spec) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd), placed as `_split_heads` placed
     the heads: the gradient that flows back into the reshape is then
     placed so too (a shard of H * hd that straddles heads cannot be
     viewed back as heads)."""
     B, S = out.shape[:2]
-    return constrain(out.reshape(B, S, -1), "BATCH", None,
-                     heads_spec(kv_heads))
+    return constrain(out.reshape(B, S, -1), "BATCH", None, spec)
 
 
-def _qkv(params, cfg, x, *, rope_positions=None):
-    B, S, _ = x.shape
+def _q_split(cfg) -> Optional[str]:
+    """How full-sequence attention splits its queries over the ambient
+    mesh's `model` axis: "heads", each rank attends its own q heads (the
+    KV heads divide `model`, or `model` spans whole KV groups whose q
+    heads divide it: each rank then attends against its group's KV head,
+    `flash_attention`); "rows", `model` spans whole KV groups whose q
+    heads straddle its ranks (llava's 56 heads over 16): each rank attends
+    a balanced share of the q rows with every head (`_rows_attention`);
+    None, every rank attends every query (neither divides)."""
+    m, K = axis_size("model"), cfg.n_kv_heads
+    if K % m == 0 or "model" in batch_axes():
+        return "heads"
+    if m % K:
+        return None
+    if cfg.n_heads % m == 0:
+        return "heads"
+    return "rows" if cfg.n_heads * cfg.hd % m == 0 else None
+
+
+def _q_spec(cfg):
+    """The spec entry of q's heads (`_q_split`)."""
+    return "model" if _q_split(cfg) == "heads" else None
+
+
+def _qkv(params, cfg, x, *, rope_positions=None, q_spec=None,
+         split_q: bool = True):
+    """q, k, v of x, RoPE'd at `rope_positions` where given: k and v split
+    into heads by `heads_spec`, q by `q_spec` (`heads_spec` by default);
+    without `split_q` q stays (B, S, H * hd), placed over `model` as its
+    projection, and without RoPE (`_rows_attention` takes it)."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = onto_rows(x, params["wq"])      # a decode step's, once for all three
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = _split_heads(q, H, hd, K)
-    k = _split_heads(k, K, hd, K)
-    v = _split_heads(v, K, hd, K)
+    kv_spec = heads_spec(K)
+    # K and V gathered whole where their heads do not divide `model` get a
+    # partial-sum gradient from the ranks' groups: DTensor reduce-scatters
+    # it onto the projection's columns (bound, it would be all-reduced)
+    k = _split_heads(k, K, hd, kv_spec, bind_grad=False)
+    v = _split_heads(v, K, hd, kv_spec, bind_grad=False)
+    if split_q:
+        q = _split_heads(q, H, hd, kv_spec if q_spec is None else q_spec)
+    else:
+        q = constrain(q, "BATCH", None, "model")
     if rope_positions is not None:
-        q = apply_rope(q, rope_positions, cfg.rope_theta)
+        if split_q:
+            q = apply_rope(q, rope_positions, cfg.rope_theta)
         k = apply_rope(k, rope_positions, cfg.rope_theta)
     return q, k, v
 
@@ -116,13 +154,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (`torch.utils.checkpoint`, as the reference's `jax.checkpoint`): the
     backward recomputes its scores instead of keeping them.  DTensors
     whose batch or heads alone are sharded are attended on each rank's
-    shards (`on_shards`).  Non-causal attention without a window over K/V
-    whose sequence is sharded too (decode's cross-attention over a cached
-    encoder K/V, which the rules shard so where its KV heads do not divide
-    `model`) attends each rank's piece of the keys, and the softmax
-    states, all-gathered over the mesh dimensions that shard them, are
-    merged (`ops.merge_pieces`); it records no gradient.  Any other
-    placement raises.
+    shards (`on_shards`); q heads sharded over more ranks than there are
+    KV heads attend their group's KV heads (`_group_attention`).
+    Non-causal attention without a window over K/V whose sequence is
+    sharded too (decode's cross-attention over a cached encoder K/V,
+    which the rules shard so where its KV heads do not divide `model`)
+    attends each rank's piece of the keys, and the softmax states are
+    merged over the mesh dimensions that shard them (`ops.merge_ranks`);
+    it records no gradient.  Any other placement raises.
     """
     kw = dict(causal=causal, window=window, q_offset=int(q_offset),
               q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -133,6 +172,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dims = ({"batch": 0, "heads": 2}, kv, kv)
     seq = seq_dims(k) if shard_kinds((q, k, v), dims)[0] else []
     if not seq:
+        group = _group_dim(q, k)
+        if group is not None:
+            return _group_attention(q, k, v, group, kw)
         return on_shards("flash_attention", functools.partial(
             _flash_attention, **kw), (q, k, v), dims, dims[:1])
     if causal or window or torch.is_grad_enabled() and any(
@@ -144,10 +186,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def merged(q, k, v):
         out, lse = _flash_attention(q, k, v, **kw, state=True)
-        both = gather_states(torch.cat([out, lse[..., None]], -1), mesh,
-                             seq)
-        return ops.merge_pieces(both, q.dtype)
+        return ops.merge_ranks(torch.cat([out, lse[..., None]], -1), mesh,
+                               seq, q.dtype)
     return on_shards("flash_attention", merged, (q, k, v), dims, dims[:1])
+
+
+def _group_dim(q, k) -> Optional[int]:
+    """The mesh dimension (of more than one rank) that shards q's heads
+    where k's KV heads lie whole and do not divide its ranks: `model`
+    spanning whole KV groups (`_q_split`); None where there is none."""
+    mesh = q.device_mesh
+    for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pq.is_shard(2) and not pk.is_shard() and mesh.size(m) > 1 \
+                and k.shape[2] % mesh.size(m):
+            return m
+    return None
+
+
+def _group_attention(q, k, v, m: int, kw: dict):
+    """Attention whose q heads are sharded over mesh dimension m, more
+    ranks than KV heads: each rank attends its q heads against the KV
+    heads of their group, sliced from k and v, which lie whole there
+    (gathered from their projection's columns).  Their gradient is then
+    a partial sum over the group's ranks (`on_shards`), which the
+    projection's redistribution reduces."""
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    h0, nh = shard_range(q, 2)
+    if not (G % nh == 0 or nh % G == 0 and h0 % G == 0):
+        raise NotImplementedError(
+            f"flash_attention: {nh} q heads a rank do not split or hold"
+            f" whole GQA groups of {G}")
+    g0, g1 = h0 // G, (h0 + nh - 1) // G + 1
+
+    def local(q, k, v):
+        return _flash_attention(q, k[:, :, g0:g1], v[:, :, g0:g1], **kw)
+
+    b = {"batch": 0}
+    dims = ({"batch": 0, "heads": 2}, b, b)
+    return on_shards("flash_attention", local, (q, k, v), dims, dims[:1])
+
+
+def _rows_attention(q, k, v, pos, cfg):
+    """Causal attention of q (B, S, H * hd), RoPE not yet applied, whose
+    columns are sharded over `model` (the rows of `wo` they meet), against
+    whole k, v (B, S, K, hd).  The rows are cut into 2n chunks of L (n the
+    ranks of `model`, S zero-padded to 2nL), and rank c attends chunks c
+    and 2n - 1 - c with every head, equal shares under the causal mask:
+    one all-to-all brings each rank its chunks' columns from every rank,
+    and one sends the output's columns back, placed as q.  k's and v's
+    gradient is a partial sum over `model`."""
+    mesh = q.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    n, c = mesh.size(md), mesh.get_local_rank(md)
+    H, hd = cfg.n_heads, cfg.hd
+    S = q.shape[1]
+    L = -(-S // (2 * n))
+    chunks = [j for r in range(n) for j in (r, 2 * n - 1 - r)]
+    back = [chunks.index(j) for j in range(2 * n)]
+    pos = torch.cat([pos, torch.arange(S, 2 * n * L, device=pos.device)])
+    kw = dict(causal=True, window=cfg.swa_window, q_chunk=512, kv_chunk=512)
+
+    def local(q, k, v):
+        B, _, w = q.shape
+        q = pad(q, (0, 0, 0, 2 * n * L - S)).reshape(B, 2 * n, L, w)
+        # (n, B, 2L, w): the rows each rank takes, in rank order
+        q = q[:, chunks].reshape(B, n, 2 * L, w).transpose(0, 1)
+        q = all_to_all(q, mesh, md)      # the columns of rank i's slice
+        q = q.permute(1, 2, 0, 3).reshape(B, 2, L, H, hd)
+        out = []
+        for i, j in enumerate(chunks[2 * c:2 * c + 2]):
+            qj = apply_rope(q[:, i], pos[j * L:(j + 1) * L].to(q.device),
+                            cfg.rope_theta)
+            out.append(_flash_attention(qj, k, v, q_offset=j * L, **kw))
+        out = torch.stack(out, 1).reshape(B, 2 * L, n, w).permute(
+            2, 0, 1, 3)
+        out = all_to_all(out, mesh, md)  # rank i's rows of my columns
+        out = out.transpose(0, 1).reshape(B, 2 * n, L, w)[:, back]
+        return out.reshape(B, 2 * n * L, w)[:, :S]
+
+    dims = ({"batch": 0, "cols": 2}, {"batch": 0}, {"batch": 0})
+    return on_shards("flash_attention", local, (q, k, v), dims, dims[:1])
 
 
 def _kv_chunks(a: int, b: int, *, kc: int, nk: int, T: int, causal: bool,
@@ -272,9 +391,21 @@ def attention_full(params, cfg, x: torch.Tensor, *, positions=None,
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     pos = positions if positions is not None \
         else torch.arange(S, device=x.device)
-    q, k, v = _qkv(params, cfg, h, rope_positions=pos)
-    out = flash_attention(q, k, v, causal=True, window=cfg.swa_window)
-    y = _merge_heads(out, cfg.n_kv_heads) @ params["wo"]
+    split = _q_split(cfg) if _is_dtensor(h) else "heads"
+    if split == "rows":
+        if pos.dim() != 1:
+            # the heads branch would attend every head on every rank
+            raise NotImplementedError(
+                "attention_full: q rows split over `model` (_q_split) at"
+                f" batched positions {tuple(pos.shape)}")
+        q, k, v = _qkv(params, cfg, h, rope_positions=pos, split_q=False)
+        out = _rows_attention(q, k, v, pos, cfg)
+    else:
+        spec = _q_spec(cfg)
+        q, k, v = _qkv(params, cfg, h, rope_positions=pos, q_spec=spec)
+        out = _merge_heads(flash_attention(q, k, v, causal=True,
+                                           window=cfg.swa_window), spec)
+    y = out @ params["wo"]
     cache = None
     if mode == "prefill":
         if cfg.swa_window:
@@ -372,7 +503,7 @@ def attention_decode(params, cfg, x: torch.Tensor, cache: dict,
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], idx.lengths,
                                impl=impl)
     y = _merge_heads(out.to(x.dtype).reshape(B, 1, *out.shape[1:]),
-                     cfg.n_kv_heads) @ params["wo"]
+                     heads_spec(cfg.n_kv_heads)) @ params["wo"]
     return x + y
 
 
@@ -384,11 +515,12 @@ def encoder_attention(params, cfg, x: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    q = _split_heads(dot(h, params["wq"]), H, hd, K)
-    k = _split_heads(dot(h, params["wk"]), K, hd, K)
-    v = _split_heads(dot(h, params["wv"]), K, hd, K)
+    spec = _q_spec(cfg)
+    q = _split_heads(dot(h, params["wq"]), H, hd, spec)
+    k = _split_heads(dot(h, params["wk"]), K, hd, heads_spec(K))
+    v = _split_heads(dot(h, params["wv"]), K, hd, heads_spec(K))
     out = flash_attention(q, k, v, causal=False)
-    return x + dot(_merge_heads(out, K), params["wo"])
+    return x + dot(_merge_heads(out, spec), params["wo"])
 
 
 def cross_attention_full(params, cfg, x: torch.Tensor,
@@ -400,14 +532,17 @@ def cross_attention_full(params, cfg, x: torch.Tensor,
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    q = _split_heads(h @ params["wq"], H, hd, cfg.n_kv_heads)
+    spec = _q_spec(cfg)
+    q = _split_heads(h @ params["wq"], H, hd, spec)
     out = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return x + _merge_heads(out, cfg.n_kv_heads) @ params["wo"]
+    return x + _merge_heads(out, spec) @ params["wo"]
 
 
 def encode_cross_kv(params, cfg, enc_out: torch.Tensor) -> dict:
     """Cross-attention K/V of the encoder output (B, F, d), which is not
     normalised again; no bk/bv.  Float32 for float32 frames."""
     K, hd = cfg.n_kv_heads, cfg.hd
-    return {"k": _split_heads(dot(enc_out, params["wk"]), K, hd, K),
-            "v": _split_heads(dot(enc_out, params["wv"]), K, hd, K)}
+    return {"k": _split_heads(dot(enc_out, params["wk"]), K, hd,
+                              heads_spec(K)),
+            "v": _split_heads(dot(enc_out, params["wv"]), K, hd,
+                              heads_spec(K))}

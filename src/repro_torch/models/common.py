@@ -243,11 +243,59 @@ def constrain(x, *spec, bind_grad: bool = True):
         a if isinstance(a, tuple) else (a,) if a else ()) if sizes[s] > 1),
         sizes) for dim, a in zip(x.shape, spec)]
     placements = spec_placements(fitted, dmesh)
-    if bind_grad and x.requires_grad and torch.is_grad_enabled():
-        return _Constrain.apply(x, placements)
-    if tuple(x.placements) == placements:
+    for pl in _stages(tuple(x.placements), placements):
+        if bind_grad and x.requires_grad and torch.is_grad_enabled():
+            x = _Constrain.apply(x, pl)
+        elif tuple(x.placements) != pl:
+            x = x.redistribute(dmesh, pl)
+    return x
+
+
+def _stages(now: tuple, target: tuple) -> list:
+    """The placements a redistribution from `now` to `target` passes:
+    first every mesh dimension that the target shards where `now` holds
+    the tensor whole or as a partial sum (a local slice or a
+    reduce-scatter, both of which shrink what the rest moves) takes its
+    target placement, where no later mesh dimension shards that tensor
+    dimension now (a shard of a shard, in mesh order); then the rest.
+    DTensor's own plan may gather first: a product's partial sum over
+    `data`, its batch whole, reaches the batch placement by an
+    all-gather over `model` of the whole batch and then a reduce-scatter
+    over `data`, where this reduce-scatters first."""
+    def inner(m, t):        # no later mesh dimension shards t.dim now
+        return not any(p.is_shard(t.dim) for p in now[m + 1:])
+
+    mid = tuple(t if t.is_shard() and not p.is_shard() and inner(m, t)
+                else p for m, (p, t) in enumerate(zip(now, target)))
+    return [mid, target] if mid not in (now, target) else [target]
+
+
+def onto_rows(x, w, dim: int = 0):
+    """x (..., d), whose last dimension meets w's dimension `dim` in a
+    product, placed with its d on the mesh axes that shard that dimension
+    of w (FSDP) and its batch on the rest of its own, where that is the
+    cheaper exchange: DTensors that autograd does not record, x's local
+    bytes fewer than w's gathered over those axes (moving x is one
+    all-to-all of its local bytes; DTensor would move x for each product
+    of it, or gather w).
+    The products of x with several such weights, each then local and
+    partial over those axes, share the one exchange.  A decode step's
+    activations are the case; x is returned as it is otherwise."""
+    if not (_is_dtensor(x) and _is_dtensor(w)) or torch.is_grad_enabled() \
+            and (x.requires_grad or w.requires_grad):
         return x
-    return x.redistribute(dmesh, placements)
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    axes = tuple(names[m] for m, p in enumerate(w.placements)
+                 if p.is_shard(dim) and mesh.size(m) > 1)
+    n = int(np.prod([mesh.size(names.index(a)) for a in axes]))
+    lx, lw = x.to_local(), w.to_local()
+    if not axes or lx.numel() * lx.element_size() \
+            >= n * lw.numel() * lw.element_size():
+        return x
+    batch = tuple(names[m] for m, p in enumerate(x.placements)
+                  if p.is_shard(0) and names[m] not in axes)
+    return constrain(x, batch or None, *[None] * (x.ndim - 2), axes)
 
 
 def _fit_axes(dim: int, axes: tuple, sizes) -> Optional[tuple]:
@@ -354,6 +402,52 @@ def gather_states(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
     for m in dims:
         x = gather(x, 0, (mesh, m))
     return x.wait() if hasattr(x, "wait") else x     # AsyncCollectiveTensor
+
+
+def all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """x all-reduced by `op` over each (mesh, mesh dimension) of
+    `groups` in turn (functional collectives; none for no group)."""
+    import torch.distributed._functional_collectives as funcol
+    for g in groups:
+        x = funcol.all_reduce(x, op, g)
+        x = x.wait() if hasattr(x, "wait") else x    # AsyncCollectiveTensor
+    return x
+
+
+def _exchange(x, mesh, dim, out_splits=None, in_splits=None):
+    import torch.distributed._functional_collectives as funcol
+    y = funcol.all_to_all_single(x, out_splits, in_splits, (mesh, dim))
+    return y.wait() if hasattr(y, "wait") else y       # AsyncCollectiveTensor
+
+
+class _AllToAll(torch.autograd.Function):
+    """An even all-to-all over x's leading dimension, one slice a rank
+    (`all_to_all`); its gradient is the same exchange back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _exchange(x.contiguous(), mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.mesh, ctx.dim), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, dim: int, out_splits=None,
+               in_splits=None) -> torch.Tensor:
+    """x (a rank's local tensor) exchanged over mesh dimension `dim`
+    (functional collectives): rank i sends the rows of x's leading
+    dimension in its i-th piece to rank i and receives the pieces the
+    others send it, in rank order.  Without splits the pieces are equal,
+    one slice of x's leading dimension (of size the ranks') each, and the
+    exchange records its gradient (the same exchange back); with them
+    (`in_splits` the rows sent to each rank, `out_splits` received from
+    each) it records none."""
+    if out_splits is None and in_splits is None:
+        return _AllToAll.apply(x, mesh, dim)
+    return _exchange(x.contiguous(), mesh, dim, list(out_splits),
+                     list(in_splits))
 
 
 def shard_kinds(args: Sequence, dims: Sequence):

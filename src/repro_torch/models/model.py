@@ -34,9 +34,10 @@ from .. import resolve_device
 from .attention import (attention_decode, attention_full,
                         cross_attention_full, decode_index, encode_cross_kv,
                         encoder_attention, init_attention)
-from .common import (_is_dtensor, constrain, dense_init, dtype_of,
-                     on_shards, replicated_like, rms_norm, seq_shard_residual,
-                     shard_kinds, shard_range, spec_placements)
+from .common import (_is_dtensor, all_reduce, constrain, dense_init,
+                     dtype_of, on_shards, replicated_like, rms_norm,
+                     seq_shard_residual, shard_kinds, shard_range,
+                     spec_placements)
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
 from .spec import ArchConfig
@@ -339,16 +340,6 @@ def _write_cache(stacked: Dict[str, torch.Tensor], r: int,
         buf.to_local()[r].copy_(t.to_local())
 
 
-def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
-    """x all-reduced by `op` over each (mesh, mesh dimension) of
-    `groups` in turn (functional collectives; none for no group)."""
-    import torch.distributed._functional_collectives as funcol
-    for g in groups:
-        x = funcol.all_reduce(x, op, g)
-        x = x.wait() if hasattr(x, "wait") else x    # AsyncCollectiveTensor
-    return x
-
-
 class _VocabParallelCE(torch.autograd.Function):
     """The cross-entropy rows of one rank's logits z (B, S, V_local), a
     shard of the vocabulary starting at `offset`, against targets t
@@ -370,13 +361,13 @@ class _VocabParallelCE(torch.autograd.Function):
         rows, maxes, sums = [], [], []
         for i in range(0, z.shape[1], cs):
             zc, tc = z[:, i:i + cs], t[:, i:i + cs]
-            m = _all_reduce(zc.amax(dim=-1, keepdim=True).float(), "max",
-                            groups)
+            m = all_reduce(zc.amax(dim=-1, keepdim=True).float(), "max",
+                           groups)
             zs = zc - m                                  # f32
             idx, held = _local_target(tc, offset, z.shape[-1])
-            tl = _all_reduce(torch.where(held, zs.gather(-1, idx)[..., 0],
-                                         0.0), "sum", groups)
-            se = _all_reduce(zs.exp_().sum(dim=-1), "sum", groups)
+            tl = all_reduce(torch.where(held, zs.gather(-1, idx)[..., 0],
+                                        0.0), "sum", groups)
+            se = all_reduce(zs.exp_().sum(dim=-1), "sum", groups)
             rows.append(torch.where(tc >= 0, torch.log(se) - tl, 0.0))
             maxes.append(m)
             sums.append(se)

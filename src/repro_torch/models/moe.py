@@ -37,8 +37,8 @@ from typing import Tuple
 import torch
 
 from .common import (_is_dtensor, axis_size, batch_axes, constrain,
-                     dense_init, dtype_of, on_shards, rms_norm, shard_kinds,
-                     silu)
+                     dense_init, dtype_of, on_shards, onto_rows, rms_norm,
+                     shard_kinds, silu)
 
 # --- gather-only autodiff primitives (off the path; see above) ---------
 # Every index map here is a (partial) permutation, so each backward pass
@@ -304,6 +304,29 @@ def _rows_spec(x):
                  if p.is_shard(0)) or None
 
 
+def _combine_columns(out_e, dest, keep, inv_order, gates, k: int):
+    """`_combine` of every group on each rank's columns of out_e
+    (G, E, C, d), its d sharded (`onto_rows`) and its sum maybe partial
+    over `model`: the combine is linear in out_e, column by column, so
+    y (G, Tg, d) f32 is placed as out_e, d for d, and (in x's dtype, as
+    out_e's partial sums would) moves (G, Tg, d) to the groups' shards
+    where out_e would move (G, E, C, d).  The
+    groups' metadata are gathered over the mesh dimensions that shard
+    d."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = out_e.device_mesh
+    pl = tuple(out_e.placements)
+    meta_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    metas = [a.redistribute(mesh, meta_pl)
+             for a in (dest, keep, inv_order, gates)]
+    y_pl = [Shard(2) if p.is_shard(3) else p for p in pl]
+    return local_map(lambda o, de, ke, io, gg: _combine(o, de, ke, io, gg,
+                                                        k),
+                     out_placements=y_pl, in_placements=(pl,) + (meta_pl,)
+                     * 4, device_mesh=mesh)(out_e, *metas)
+
+
 def _as_rows(y, x):
     """y (G, Tg, d) placed over the groups as x (B, S, d) is over its
     batch, so that y reshapes to x's shape shard by shard (G may exceed
@@ -335,8 +358,8 @@ def apply_moe(params: dict, cfg, x: torch.Tensor, *,
     # ways than the batch, and a gradient placed so cannot be viewed back)
     rows = _rows_spec(x)
     hf = constrain(h.reshape(G, Tg, d), rows, bind_grad=False)
-    logits = constrain(hf.reshape(T, d).float() @ params["router"],
-                       rows)                                    # (T, E)
+    logits = constrain(onto_rows(hf.reshape(T, d), params["router"])
+                       .float() @ params["router"], rows)       # (T, E)
     gates, idx = _route(logits, k)
     gates, idx = (constrain(a.reshape(G, Tg, k), rows)
                   for a in (gates, idx))
@@ -345,13 +368,28 @@ def apply_moe(params: dict, cfg, x: torch.Tensor, *,
     # data -> expert boundary: the resharding below is the all-to-all
     ep = "model" if E % _model_axis_size() == 0 else None
     buf = constrain(buf, rows, ep)                             # (G, E, C, d)
+    if not ep:
+        # a decode step's buffer onto the experts' shards of d, once for
+        # both products; the combine then runs there
+        buf = onto_rows(buf, params["w_up"], 1)
+    cols = _is_dtensor(buf) and any(p.is_shard(3) for p in buf.placements)
     up = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
     gate = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
+    if cols:
+        # the products' partial sums over d reduce onto the groups' shards
+        # (a reduce-scatter each; one DTensor release all-reduces them)
+        up, gate = (constrain(a, rows, None, None, "model")
+                    for a in (up, gate))
     out_e = torch.einsum("gecf,efd->gecd", silu(gate) * up, params["w_down"])
-    out_e = constrain(out_e, rows, ep)
-    out_e = constrain(out_e, rows)        # back on the groups' shards
-    y = _per_group(lambda oo, de, ke, io, gg: _combine(oo, de, ke, io, gg, k),
-                   1, out_e, dest, keep, inv_order, gates)      # (G, Tg, d)
+    if cols:
+        y = _combine_columns(out_e, dest, keep, inv_order, gates,
+                             k).to(x.dtype)
+    else:
+        out_e = constrain(out_e, rows, ep)
+        out_e = constrain(out_e, rows)    # back on the groups' shards
+        y = _per_group(lambda oo, de, ke, io, gg: _combine(
+            oo, de, ke, io, gg, k), 1, out_e, dest, keep, inv_order, gates)
+    # y: (G, Tg, d)
     out = x + _as_rows(y, x).reshape(B, S, d).to(x.dtype)
     if return_aux:
         return out, load_balance_loss(logits, idx, E)

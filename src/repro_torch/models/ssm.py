@@ -35,14 +35,17 @@ Conventions:
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .common import (_is_dtensor, constrain, dense_init, dtype_of,
-                     on_shards, pad, rms_norm, silu)
+from .common import (_is_dtensor, all_reduce, all_to_all, constrain,
+                     dense_init, dtype_of, gather_states, on_shards, pad,
+                     rms_norm, silu)
 
 # ======================================================================
 # Mamba2
@@ -125,18 +128,18 @@ def _mamba_inner(cfg, params, h, conv_state=None):
     return z, xh, Bm, Cm, dt, A, new_conv_state
 
 
-def _mamba_out(params, cfg, x, z, y):
-    """x + the gated, normed y projected back.  Where autograd does not
-    record it, the gated norm is taken MAMBA_ROWS rows at a time in y's
-    own rows, which it overwrites (`_gated_norm_rows`)."""
+def _gated_norm(params, cfg, z, y, dtype, norm_over=()):
+    """The gated, normed y in `dtype`.  Where autograd does not record it,
+    it is taken MAMBA_ROWS rows at a time in y's own rows, which it
+    overwrites (`_gated_norm_rows`, which `norm_over`, (width, groups),
+    is passed to)."""
     if _records(y, z, params["norm_y"]):
-        y = rms_norm(y * silu(z.float()), params["norm_y"],
-                     cfg.norm_eps).to(x.dtype)
-    else:
-        y = _on_rows("mamba2_gated_norm", functools.partial(
-            _gated_norm_rows, eps=cfg.norm_eps, dtype=x.dtype), (y, z),
-            (params["norm_y"],))
-    return x + y @ params["w_out"]
+        return rms_norm(y * silu(z.float()), params["norm_y"],
+                        cfg.norm_eps).to(dtype)
+    over = dict(zip(("width", "groups"), norm_over))
+    return _on_rows("mamba2_gated_norm", functools.partial(
+        _gated_norm_rows, eps=cfg.norm_eps, dtype=dtype, **over), (y, z),
+        (params["norm_y"],))
 
 
 # tokens the Mamba2 block's conv, skip term and gated norm take at a time
@@ -206,17 +209,23 @@ def _plus_Dx_rows(y, xh, D):
 
 
 def _gated_norm_rows(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                     *, eps: float, dtype: torch.dtype) -> torch.Tensor:
+                     *, eps: float, dtype: torch.dtype, width: int = 0,
+                     groups=()) -> torch.Tensor:
     """rms_norm(y * silu(z.float()), scale, eps).to(dtype), (B, S, di),
     MAMBA_ROWS rows at a time: each block's products in y's rows in place
     (y is overwritten), in `rms_norm`'s order, then rounded into the
-    output."""
+    output.  With `groups` y holds a share of the normed channels: their
+    sum of squares is all-reduced over the groups, over `width` in all."""
     out = y.new_empty(y.shape, dtype=dtype)
     for a, e in _row_blocks(y.shape[1]):
         yb, g = y[:, a:e], z[:, a:e].to(torch.float32, copy=True)
         yb.mul_(g.mul_(torch.sigmoid(g)))                  # y * silu(z)
         del g
-        var = (yb * yb).mean(dim=-1, keepdim=True)
+        if groups:
+            var = all_reduce((yb * yb).sum(dim=-1, keepdim=True), "sum",
+                             groups) / width
+        else:
+            var = (yb * yb).mean(dim=-1, keepdim=True)
         out[:, a:e] = yb.mul_(torch.rsqrt(var + eps)).mul_(scale.float())
     return out
 
@@ -360,10 +369,29 @@ def mamba2_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
     """Full-sequence Mamba2 block.  mode="train" (or `chunk_scans`) takes
     `mamba2_chunk_scan`; mode="prefill" takes `ops.ssd_scan` (`impl`
     picks its version) on xt = x dt and lA = dt A, y gaining D x as in the
-    chunk scan."""
-    B, S, _ = x.shape
-    z, xh, Bm, Cm, dt, A, conv_state = _mamba_inner(
-        cfg, params, rms_norm(x, params["norm"], cfg.norm_eps))
+    chunk scan.  DTensors whose heads `model` splits take `_mamba2_heads`
+    where autograd does not record the block."""
+    m = _heads_dim(params, cfg, x)
+    if m is not None:
+        return _mamba2_heads(params, cfg, x, m, mode=mode, impl=impl,
+                             chunk_scans=chunk_scans)
+    out, conv_state, state = _mamba2_mix(
+        params, cfg, rms_norm(x, params["norm"], cfg.norm_eps),
+        lambda y: x + y @ params["w_out"], dtype=x.dtype, mode=mode,
+        impl=impl, chunk_scans=chunk_scans)
+    cache = {"conv": conv_state, "ssm": state} if mode == "prefill" else None
+    return out, cache
+
+
+def _mamba2_mix(params, cfg, h, project, *, dtype, mode: str,
+                impl: Optional[str], chunk_scans: bool, norm_over=()):
+    """The Mamba2 block after its input norm, on h, the normed input (let
+    go once projected): `project` of the gated, normed y (B, S, d_inner)
+    in `dtype` (the out-projection and the residual), the conv state and
+    the ssm state.  `norm_over`: `_gated_norm`'s."""
+    B, S, _ = h.shape
+    z, xh, Bm, Cm, dt, A, conv_state = _mamba_inner(cfg, params, h)
+    del h
     if mode == "train" or chunk_scans:
         y, state = mamba2_chunk_scan(xh, Bm, Cm, dt, A, params["D"])
     else:
@@ -371,8 +399,122 @@ def mamba2_full(params, cfg, x: torch.Tensor, *, mode: str = "train",
                                 impl=impl)
         y = _plus_Dx(y, xh, params["D"])
     del xh, Bm, Cm, dt      # the conv's output, let go before the epilogue
-    out = _mamba_out(params, cfg, x, z, y.reshape(B, S, cfg.d_inner))
-    cache = {"conv": conv_state, "ssm": state} if mode == "prefill" else None
+    out = project(_gated_norm(params, cfg, z, y.reshape(B, S, cfg.d_inner),
+                              dtype, norm_over))
+    return out, conv_state, state
+
+
+def _heads_dim(params, cfg, x) -> Optional[int]:
+    """The mesh dimension of `model` where a Mamba2 block on DTensor x
+    splits its heads (`_mamba2_heads`): x whole there (its batch on other
+    axes), more than one rank, the heads dividing them, and no autograd
+    recording the block; else None."""
+    if not _is_dtensor(x) or _records(x, *params.values()):
+        return None
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    m = names.index("model")
+    n = mesh.size(m)
+    if n == 1 or cfg.ssm_heads % n or x.placements[m].is_shard():
+        return None
+    return m
+
+
+def _columns(w, cols, m: int) -> torch.Tensor:
+    """This rank's columns `cols[c]` (ascending indices into w's last
+    dimension; cols[j] those rank j of mesh dimension m takes) of a
+    DTensor w, whole on every other mesh dimension and on m whole or
+    sharded by its last dimension, as a local tensor.  Sharded, each rank
+    sends every other the columns of its shard that one takes: one
+    all-to-all of just those columns, in column order."""
+    mesh = w.device_mesh
+    n, c = mesh.size(m), mesh.get_local_rank(m)
+    local = w.to_local()
+    dev = local.device
+    if not w.placements[m].is_shard():
+        return local[..., torch.as_tensor(cols[c], device=dev)]
+    width = local.shape[-1]
+    lo = c * width
+    sent = [j[(j >= lo) & (j < lo + width)] - lo for j in cols]
+    got = [int(((cols[c] >= i * width) & (cols[c] < (i + 1) * width))
+               .sum()) for i in range(n)]
+    rows = local.reshape(-1, width).T          # (width, rest): a column a row
+    buf = rows[torch.as_tensor(np.concatenate(sent), device=dev)]
+    out = all_to_all(buf, mesh, m, got, [len(j) for j in sent])
+    return out.T.reshape(*local.shape[:-1], len(cols[c]))
+
+
+def _mamba2_heads(params, cfg, x, m: int, *, mode: str,
+                  impl: Optional[str], chunk_scans: bool,
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """`mamba2_full` without autograd on DTensors, each rank of `model`
+    (mesh dimension m, n ranks) on its nh / n heads, as the reference's
+    rules shard the block's weights: `_mamba2_mix` on local tensors,
+    its parameters the rank's share (the in-projection's z, x and dt
+    columns of its heads and the B and C columns whole, moved by
+    `_columns`: only those columns of the weight move, by one
+    all-to-all), the gated norm's sum of squares all-reduced over
+    `model`, and its rows of the out-projection, whose product is the
+    partial sum the residual reduces.  The cache's states are gathered
+    over `model` (batch-sharded only, as `cache_specs` places them)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    n = mesh.size(m)
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    dl, hl = di // n, nh // n
+
+    def span(a, w, j):
+        return np.arange(a + j * w, a + (j + 1) * w)
+
+    bc = np.arange(2 * di, 2 * di + 2 * ds)
+    # each rank's in-projection columns (z, x, B, C, dt) and conv channels
+    # (x, B, C), ascending
+    w_cols = [np.concatenate([span(0, dl, j), span(di, dl, j), bc,
+                              span(2 * di + 2 * ds, hl, j)])
+              for j in range(n)]
+    conv_cols = [np.concatenate([span(0, dl, j), bc - di]) for j in range(n)]
+
+    def mine(name, *spec):
+        # a parameter whole on every mesh dimension but `model`
+        return constrain(params[name], *spec).to_local()
+
+    local = {"w_in": _columns(constrain(params["w_in"], None, "model"),
+                              w_cols, m),
+             "conv_w": _columns(constrain(params["conv_w"], None, "model"),
+                                conv_cols, m),
+             "conv_b": _columns(constrain(params["conv_b"], "model"),
+                                conv_cols, m),
+             **{k: mine(k, "model")
+                for k in ("dt_bias", "A_log", "D", "norm_y")}}
+    w_out = mine("w_out", "model", None)
+    # cfg's Mamba2 sizes for a rank's channels and heads
+    sub = SimpleNamespace(d_inner=dl, ssm_state=ds, ssm_heads=hl,
+                          ssm_head_dim=hd, d_conv=cfg.d_conv,
+                          norm_eps=cfg.norm_eps)
+    pl = tuple(Partial() if i == m else p for i, p in enumerate(x.placements))
+    out, conv_state, state = _mamba2_mix(
+        local, sub, rms_norm(x, params["norm"], cfg.norm_eps).to_local(),
+        lambda y: x + DTensor.from_local(y @ w_out, mesh, pl,
+                                         run_check=False),
+        dtype=x.dtype, mode=mode, impl=impl, chunk_scans=chunk_scans,
+        norm_over=(di, [(mesh, m)]))
+    cache = None
+    if mode == "prefill":
+        # the x channels' conv states and the heads' ssm states of every
+        # rank, in rank order
+        K1 = cfg.d_conv - 1
+        xs = gather_states(conv_state[..., :dl].contiguous(), mesh, [m])
+        conv_state = torch.cat([xs.permute(1, 2, 0, 3).reshape(
+            -1, K1, di), conv_state[..., dl:]], -1)
+        state = gather_states(state, mesh, [m]).transpose(0, 1).reshape(
+            -1, nh, hd, ds)
+        pl = tuple(Replicate() if i == m else p
+                   for i, p in enumerate(x.placements))
+        cache = {k: DTensor.from_local(t, mesh, pl, run_check=False)
+                 for k, t in (("conv", conv_state), ("ssm", state))}
     return out, cache
 
 
@@ -392,7 +534,8 @@ def mamba2_decode(params, cfg, x: torch.Tensor, cache: dict,
         + torch.einsum("bnp,bs->bnps", xt, Bm[:, 0])
     y = torch.einsum("bnps,bs->bnp", s_new, Cm[:, 0]) \
         + xh[:, 0] * constrain(params["D"])[None, :, None]
-    out = _mamba_out(params, cfg, x, z, y.reshape(B, 1, cfg.d_inner))
+    out = x + _gated_norm(params, cfg, z, y.reshape(B, 1, cfg.d_inner),
+                          x.dtype) @ params["w_out"]
     return out, {"conv": new_conv, "ssm": s_new}
 
 

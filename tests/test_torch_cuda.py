@@ -312,7 +312,7 @@ def test_flash_decode_lse_matches_plain_on_card(gen, B, H, K, D, T, lengths,
                                        (3, 8, 2, 64, 300)])
 def test_flash_decode_t_slices_merge_on_card(gen, B, H, K, D, T, R, dtype):
     """The kernel over R T-pieces of one cache through ops.decode_piece,
-    the states merged by ops.merge_pieces (chip_smoke.py's
+    the states merged by ops.merge_states (chip_smoke.py's
     `sliced_decode`, what ranks of a sequence-sharded cache compute),
     within TOL of the unsliced kernel and of the plain version; pieces a
     short sequence leaves empty, and a sequence of length 0, included; one

@@ -10,6 +10,8 @@ repro_torch.launch.dryrun --arch whisper-medium --shape decode_32k` in a
 child process, at the full 16 x 16 mesh).  The fake process group moves
 no data: these tests check what the trace records, not numbers.
 """
+import dataclasses
+import math
 import os
 import pathlib
 import subprocess
@@ -26,12 +28,14 @@ from repro.core.hardware import V5E_HBM_BW, V5E_ICI_BW, V5E_PEAK_FLOPS
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import hlo_analysis as H
+from repro_torch.launch import sharding
 from repro_torch.launch.hlo_analysis import (StepRecorder, collective_bytes,
                                              roofline_from_counts,
                                              roofline_terms)
 from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.launch.shapes import InputShape
 from repro_torch.launch.sharding import distribute
+from repro_torch.models import model as M
 from repro_torch.models.common import on_shards, shard_kinds
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -70,6 +74,28 @@ def test_collective_records():
     assert c["total"] == c["all-gather"] + c["all-reduce"]
     assert set(c) == {"all-gather", "all-reduce", "reduce-scatter",
                       "all-to-all", "collective-permute", "total"}
+
+
+@pytest.mark.parametrize("now,to", [
+    ((Shard(0), Shard(1)), (Shard(0), Shard(2))),      # over `model`
+    ((Shard(1), Shard(2)), (Shard(0), Shard(2)))])     # over `data`
+def test_shard_to_shard_records_one_all_to_all(now, to):
+    """DTensor's redistribution from a shard of one dimension to a shard of
+    another, on the fake (2, 4) mesh, records one all-to-all of the local
+    bytes and no all-gather: what it runs on a GPU mesh, where a CPU
+    mesh would all-gather (`hlo_analysis._gpu_alltoall`; its result is
+    held to DTensor's own on gloo in tests/test_torch_gloo.py)."""
+    shape = (8, 16, 32)
+    with fake_mesh(*SMALL_MESH) as mesh, FakeTensorMode():
+        a = _dt(mesh, shape, torch.bfloat16, list(now))
+        rec = StepRecorder()
+        with rec:
+            b = a.redistribute(mesh, list(to))
+        local = tuple(b.to_local().shape)
+    assert [kind for kind, _ in rec.records] == ["all-to-all"]
+    assert rec.records[0][1] == math.prod(shape) // 8 * 2
+    assert tuple(b.placements) == to and math.prod(local) * 8 == \
+        math.prod(shape)
 
 
 def test_roofline_terms_dominance():
@@ -362,3 +388,129 @@ def test_pure_dp_batch_on_the_multi_pod_mesh_is_one_row_a_rank(monkeypatch):
                    mesh_names=("pod", "data", "model"), save=False)
     assert r["status"] == "ok", r.get("traceback")
     assert rows and set(rows) == {1}, rows
+
+
+# reduced GQA configs whose 2 KV heads do not divide `model` = 4 of the
+# (2, 4) mesh, q's width (H * hd) unlike d_model's 256: 8 q heads split two
+# a rank ("heads"), or 6, three a group, straddling a group's two ranks
+# ("rows")
+GQA_SPLITS = {"heads": dict(n_heads=8, n_kv_heads=2, head_dim=48),
+              "rows": dict(n_heads=6, n_kv_heads=2, head_dim=48)}
+GQA_SHAPES = {"prefill_32k": InputShape("prefill_32k", 4096, 8, "prefill"),
+              "train_4k": InputShape("train_4k", 256, 8, "train")}
+
+
+def _traced(monkeypatch, arch, cfg, shape, mesh_shape, block):
+    """A pair of `cfg` (one repeat) traced on a fake mesh of mesh_shape
+    ("data", "model") under the tensor-parallel rules (pure data
+    parallelism off): the flops rank 0 records while the function
+    `block` ((module or dict, name)) runs, summed over its calls, and
+    every collective's (kind, result shape)."""
+    recs = []
+
+    class Rec(StepRecorder):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+            recs.append(self)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            name = func._overloadpacket.__name__
+            if name in H._KIND and not getattr(H._shadow, "depth", 0):
+                self.shapes.append((H._KIND[name], tuple(out.shape)))
+            return out
+
+    mod, name = block
+    put = monkeypatch.setitem if isinstance(mod, dict) else \
+        monkeypatch.setattr
+    real, flops = (mod[name] if isinstance(mod, dict)
+                   else getattr(mod, name)), []
+
+    def counted(*a, **kw):
+        f0 = recs[-1].flops
+        out = real(*a, **kw)
+        flops.append(recs[-1].flops - f0)
+        return out
+
+    monkeypatch.setattr(H, "StepRecorder", Rec)
+    put(mod, name, counted)
+    for m in (D, sharding):
+        monkeypatch.setattr(m, "pure_dp", lambda cfg, mesh: False)
+    r = D.run_pair(arch, shape.name, cfg=cfg, shape=shape,
+                   mesh_shape=mesh_shape, mesh_names=("data", "model"),
+                   save=False)
+    put(mod, name, real)
+    assert r["status"] == "ok", r.get("traceback")
+    return sum(flops), recs[-1].shapes
+
+
+@pytest.mark.parametrize("shape", sorted(GQA_SHAPES))
+@pytest.mark.parametrize("split", sorted(GQA_SPLITS))
+def test_gqa_attention_split_over_model(monkeypatch, split, shape):
+    """C21: GQA attention whose KV heads do not divide `model`, traced on
+    a fake (2, 4) mesh (batch on `data`), records on a rank the unsharded
+    call's attention flops (a (1, 1) mesh) / (2 x 4) within 1 %, and no
+    all-gather of q's columns (a result of q's size for the rank's rows,
+    B/2 x S x H hd); with q whole on every `model` rank, the parent's
+    placement, the rank computes every head: 4x the flops, q gathered."""
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(n_repeat=1),
+                              **GQA_SPLITS[split])
+    s = GQA_SHAPES[shape]
+    block = (attention, "_flash_attention")
+    whole, _ = _traced(monkeypatch, "yi-6b", cfg, s, (1, 1), block)
+    split_f, shapes = _traced(monkeypatch, "yi-6b", cfg, s, (2, 4), block)
+    assert split_f == pytest.approx(whole / 8, rel=0.01)
+    q = s.global_batch // 2 * s.seq_len * cfg.n_heads * cfg.hd
+    gathers = [sh for kind, sh in shapes
+               if kind == "all-gather" and math.prod(sh) == q]
+    assert not gathers
+    monkeypatch.setattr(attention, "_q_split", lambda cfg: None)
+    fault, shapes = _traced(monkeypatch, "yi-6b", cfg, s, (2, 4), block)
+    assert fault == pytest.approx(whole / 2, rel=0.01)
+    assert any(kind == "all-gather" and math.prod(sh) == q
+               for kind, sh in shapes)
+
+
+def test_mamba2_heads_split_over_model(monkeypatch):
+    """C22: zamba2's Mamba2 blocks at prefill, traced on a fake (2, 4)
+    mesh (batch on `data`), record on a rank the unsharded blocks' flops
+    (a (1, 1) mesh) / (2 x 4) and the few that every rank repeats: the
+    in-projection's B and C columns and the scan's C.B products, which
+    the heads share (1.06 / 8 here, d_state 16 against 16 heads of 32);
+    with the blocks whole on every `model` rank, the parent's, the rank
+    computes every head's in-projection and scan (3.2 / 8: only its
+    out-projection is split)."""
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2-2.7b").reduced(n_repeat=1)
+    s = InputShape("prefill_32k", 512, 8, "prefill")
+    block = (M._FULL, "mamba2")
+    whole, _ = _traced(monkeypatch, "zamba2-2.7b", cfg, s, (1, 1), block)
+    split_f, _ = _traced(monkeypatch, "zamba2-2.7b", cfg, s, (2, 4), block)
+    assert whole / 8 < split_f < 1.1 * whole / 8
+    monkeypatch.setattr(ssm, "_heads_dim", lambda *a: None)
+    fault, _ = _traced(monkeypatch, "zamba2-2.7b", cfg, s, (2, 4), block)
+    assert fault > 3 * whole / 8
+
+
+def test_rows_split_refuses_batched_positions():
+    """Attention whose q rows `model` splits (`_q_split` "rows") refuses
+    batched RoPE positions by name, on a fake (2, 4) mesh: the heads
+    branch would attend every head on every rank, the fault C21
+    repaired."""
+    from repro_torch.models import attention
+    from repro_torch.models.common import set_mesh
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(n_repeat=1),
+                              **GQA_SPLITS["rows"])
+    with fake_mesh(*SMALL_MESH) as mesh, FakeTensorMode():
+        x = _dt(mesh, (8, 16, cfg.d_model), torch.float32,
+                [Shard(0), Replicate()])
+        params = {"norm": _dt(mesh, (cfg.d_model,), torch.float32,
+                              [Replicate(), Replicate()])}
+        pos = torch.zeros(8, 16, dtype=torch.long)
+        with set_mesh(mesh):
+            assert attention._q_split(cfg) == "rows"
+            with pytest.raises(NotImplementedError,
+                               match="batched positions"):
+                attention.attention_full(params, cfg, x, positions=pos)
