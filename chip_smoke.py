@@ -294,8 +294,9 @@ Phases, in order; any failure exits non-zero:
               16a on the card's host, DIST_PAIRS (one pair per rule of
               tests/launch/test_sharding_rules.py, full size, 16 x 16 and
               three at 2 x 16 x 16) traced by `dryrun.run_pair` on the fake
-              production mesh, DIST_WORKERS processes at once: each `ok`,
-              its traced argument bytes equal to the rules'
+              production mesh, DIST_WORKERS processes at once, each pair in
+              a fresh one (C25): each `ok`, its traced argument bytes equal
+              to the rules'
               (`dryrun.argument_bytes`), DIST_FIT's pairs with
               fits_h100 (pure DP on 2 x 16 x 16, a 32K prefill whose KV
               heads do not divide `model`), DIST_CEIL's at or under their
@@ -366,13 +367,12 @@ import dataclasses
 import functools
 import json
 import math
-import multiprocessing
 import subprocess
 import sys
 import time
 import types
 from collections import Counter
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -3419,12 +3419,13 @@ def phase_ssm_train():
 
 def phase_dist_host():
     """16a: DIST_PAIRS traced by the dry run on the fake production mesh,
-    DIST_WORKERS processes at once; each pair ok and its traced arguments
-    the rules' bytes; then the planted fault must raise in `distribute`."""
+    DIST_WORKERS processes at once, each pair in a fresh one; each pair ok
+    and its traced arguments the rules' bytes; then the planted fault must
+    raise in `distribute`."""
     out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(DIST_WORKERS, mp_context=multiprocessing
-                             .get_context("spawn")) as ex:
+    # each pair in a fresh process: its numbers depend on it alone (C25)
+    with DRY.fresh_processes(DIST_WORKERS) as ex:
         futures = [ex.submit(DRY.run_pair, a, s, multi_pod=mp, save=True,
                              out_dir=out_dir)
                    for a, s, mp, _ in DIST_PAIRS]

@@ -40,6 +40,10 @@ Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--skip-existing]
       [--swa-variants] [--workers N] [--out DIR]
+
+More than one pair is traced in a pool of --workers processes, each pair
+in a fresh process (`fresh_processes`), so that a pair's numbers do not
+depend on the pairs traced before it.
 """
 from __future__ import annotations
 
@@ -331,7 +335,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=str(RESULTS_DIR),
                     help="directory of the per-pair JSON files")
     ap.add_argument("--workers", type=int, default=1,
-                    help="pairs traced at once, each in its own process")
+                    help="pairs traced at once, each in a fresh process")
     args = ap.parse_args(argv)
     out_dir = pathlib.Path(args.out)
 
@@ -360,16 +364,25 @@ def main(argv=None) -> None:
                 continue
         todo.append((a, s))
     kwargs = dict(multi_pod=args.multi_pod, out_dir=out_dir)
-    if args.workers <= 1:
-        for a, s in todo:
-            print(summary(run_pair(a, s, **kwargs)), flush=True)
+    if len(todo) == 1:      # nothing was traced in this process before it
+        print(summary(run_pair(*todo[0], **kwargs)), flush=True)
         return
-    # each pair starts its own fake process group: one process per pair
-    with ProcessPoolExecutor(args.workers, mp_context=multiprocessing
-                             .get_context("spawn")) as ex:
+    with fresh_processes(args.workers) as ex:
         futures = [ex.submit(run_pair, a, s, **kwargs) for a, s in todo]
         for f in futures:
             print(summary(f.result()), flush=True)
+
+
+def fresh_processes(workers: int) -> ProcessPoolExecutor:
+    """A pool of `workers` spawned processes that runs each task in a
+    process of its own.  A traced pair leaves DTensor's process-wide caches
+    behind (sharding propagation, redistribution plans), keyed by meshes
+    that compare equal across fake groups, so a pair traced after another
+    in one process could read the other's entries; in a fresh process its
+    numbers depend on the pair alone."""
+    return ProcessPoolExecutor(
+        max(workers, 1), mp_context=multiprocessing.get_context("spawn"),
+        max_tasks_per_child=1)
 
 
 if __name__ == "__main__":

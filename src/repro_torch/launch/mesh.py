@@ -39,8 +39,8 @@ def fake_mesh(shape, names):
     dist.init_process_group("fake", store=FakeStore(), world_size=world,
                             rank=0)
     try:
-        yield init_device_mesh("cpu", tuple(shape),
-                               mesh_dim_names=tuple(names))
+        yield flatten_runs(init_device_mesh("cpu", tuple(shape),
+                                            mesh_dim_names=tuple(names)))
     finally:
         dist.destroy_process_group()
 
@@ -61,8 +61,24 @@ def make_local_mesh(model: int = 1, data: int = 1, *, device: str = "cuda"):
     if dist.get_world_size() != data * model:
         raise ValueError(f"a {data} x {model} mesh needs {data * model}"
                          f" ranks, the group has {dist.get_world_size()}")
-    return init_device_mesh(device, (data, model),
-                            mesh_dim_names=("data", "model"))
+    return flatten_runs(init_device_mesh(device, (data, model),
+                                         mesh_dim_names=("data", "model")))
+
+
+def flatten_runs(mesh):
+    """`mesh`, with the flattened mesh of every run of two or more
+    adjacent dimensions of more than one rank registered with it
+    ("data_model"; on 2 x 16 x 16 also "pod_data" and "pod_data_model"):
+    DTensor then runs a collective over several mesh dimensions as one
+    over their flattened group, where it ran one a dimension, each moving
+    the whole tensor (a pure-DP gradient, partial over `data` and `model`,
+    was all-reduced twice; ROADMAP C26)."""
+    names = mesh.mesh_dim_names
+    for i in range(len(names)):
+        for j in range(i + 2, len(names) + 1):
+            if all(mesh.size(k) > 1 for k in range(i, j)):
+                mesh[names[i:j]]._flatten()
+    return mesh
 
 
 def data_axes(mesh) -> tuple:

@@ -243,6 +243,10 @@ def constrain(x, *spec, bind_grad: bool = True):
         a if isinstance(a, tuple) else (a,) if a else ()) if sizes[s] > 1),
         sizes) for dim, a in zip(x.shape, spec)]
     placements = spec_placements(fitted, dmesh)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        moved = exchange_rows(x, placements)
+        if moved is not None:
+            return moved
     for pl in _stages(tuple(x.placements), placements):
         if bind_grad and x.requires_grad and torch.is_grad_enabled():
             x = _Constrain.apply(x, pl)
@@ -412,6 +416,90 @@ def all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
         x = funcol.all_reduce(x, op, g)
         x = x.wait() if hasattr(x, "wait") else x    # AsyncCollectiveTensor
     return x
+
+
+def _row_block(placements, coords, sizes) -> Tuple[int, int]:
+    """(index, count) of the block of dimension 0 that the rank at
+    `coords` holds: the mesh dimensions that shard it split it in mesh
+    order, the first outermost (DTensor's default order)."""
+    index, count = 0, 1
+    for m, p in enumerate(placements):
+        if p.is_shard(0):
+            index, count = index * sizes[m] + coords[m], count * sizes[m]
+    return index, count
+
+
+def exchange_rows(x, placements):
+    """DTensor x re-placed to `placements` by one all-to-all over the
+    whole mesh, or None where that does not apply: both placements shard
+    dimension 0 alone, evenly, the target shards it, and some rank's
+    target rows are not among those it holds (else a slice does it).
+    DTensor's own route gathers: from a batch of 256 on ("pod", "data")
+    of the 2 x 16 x 16 mesh to one on ("data", "model") it gathers the
+    batch over `model`, `data` and `pod` in turn, 400 rows on a rank
+    that lacks one (ROADMAP C27).  Here each target row comes from the
+    one rank that holds it and shares the target rank's coordinates on
+    the mesh dimensions that do not shard it now.  Records no gradient:
+    for tensors autograd does not track, such as a step's inputs."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    now, to = tuple(x.placements), tuple(placements)
+    if now == to or not all(p.is_replicate() or p.is_shard(0)
+                            for p in now + to):
+        return None
+    mesh = x.device_mesh
+    sizes = tuple(mesh.shape)
+    with unset_fake_temporarily():     # the mesh's rank map is real
+        ranks = mesh.mesh.flatten().tolist()
+    if ranks != list(range(dist.get_world_size())):
+        return None                  # the exchange runs on the world group
+    coords = list(np.ndindex(*sizes))
+    shards = [_row_block(p, coords[0], sizes)[1] for p in (now, to)]
+    if shards[1] == 1 or any(x.shape[0] % n for n in shards):
+        return None
+    n_now, n_to = (x.shape[0] // n for n in shards)
+
+    def first(pl, c, rows):
+        return _row_block(pl, c, sizes)[0] * rows
+
+    if all(first(now, c, n_now) <= first(to, c, n_to)
+           and first(to, c, n_to) + n_to <= first(now, c, n_now) + n_now
+           for c in coords):
+        return None
+    src = [m for m, p in enumerate(now) if p.is_shard(0)]
+    me = tuple(mesh.get_coordinate())
+    rank_of = {c: g for g, c in enumerate(coords)}
+    sends, recvs = [], []      # (group rank, first row, end row)
+    for g, c in enumerate(coords):
+        t0 = first(to, c, n_to)
+        for r0 in range(t0 - t0 % n_now, t0 + n_to, n_now):
+            holder, block = list(c), r0 // n_now
+            for m in reversed(src):
+                holder[m], block = block % sizes[m], block // sizes[m]
+            span = (max(r0, t0), min(r0 + n_now, t0 + n_to))
+            if tuple(holder) == me:
+                sends.append((g,) + span)
+            if c == me:
+                recvs.append((rank_of[tuple(holder)],) + span)
+    mine, lo = x.to_local(), first(now, me, n_now)
+    out_splits, in_splits = [0] * len(coords), [0] * len(coords)
+    for g, a, b in sends:
+        in_splits[g] = b - a
+    for g, a, b in recvs:
+        out_splits[g] = b - a
+    buf = torch.cat([mine[a - lo:b - lo] for _, a, b in sends]) \
+        if sends else mine[:0]
+    y = funcol.all_to_all_single(buf.contiguous(), out_splits, in_splits,
+                                 dist.group.WORLD)
+    y = y.wait() if hasattr(y, "wait") else y          # AsyncCollectiveTensor
+    recvs.sort()                             # pieces come in rank order
+    pieces = torch.split(y, [b - a for _, a, b in recvs])
+    local = torch.cat([pieces[i] for i in sorted(
+        range(len(recvs)), key=lambda i: recvs[i][1])])
+    return DTensor.from_local(local, mesh, to, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def _exchange(x, mesh, dim, out_splits=None, in_splits=None):

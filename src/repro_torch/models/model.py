@@ -35,8 +35,8 @@ from .attention import (attention_decode, attention_full,
                         cross_attention_full, decode_index, encode_cross_kv,
                         encoder_attention, init_attention)
 from .common import (_is_dtensor, all_reduce, constrain, dense_init,
-                     dtype_of, on_shards, replicated_like, rms_norm,
-                     seq_shard_residual, shard_kinds, shard_range,
+                     dtype_of, exchange_rows, on_shards, replicated_like,
+                     rms_norm, seq_shard_residual, shard_kinds, shard_range,
                      spec_placements)
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
@@ -418,9 +418,11 @@ def _vocab_parallel_rows(txt, targets, cs: int):
                    for p in txt.placements)
     groups = [(mesh, m) for m, p in enumerate(txt.placements)
               if p.is_shard(2) and mesh.size(m) > 1]
+    moved = exchange_rows(targets, row_pl)        # integers: no gradient
+    if moved is None:
+        moved = targets.redistribute(mesh, row_pl)
     rows = _VocabParallelCE.apply(
-        txt.to_local(grad_placements=txt.placements),
-        targets.redistribute(mesh, row_pl).to_local(),
+        txt.to_local(grad_placements=txt.placements), moved.to_local(),
         shard_range(txt, 2)[0], cs, groups)
     return [DTensor.from_local(r, mesh, row_pl, run_check=False)
             for r in rows]

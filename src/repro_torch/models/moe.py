@@ -38,7 +38,7 @@ import torch
 
 from .common import (_is_dtensor, axis_size, batch_axes, constrain,
                      dense_init, dtype_of, on_shards, onto_rows, rms_norm,
-                     shard_kinds, silu)
+                     shard_kinds, shard_range, silu)
 
 # --- gather-only autodiff primitives (off the path; see above) ---------
 # Every index map here is a (partial) permutation, so each backward pass
@@ -304,6 +304,15 @@ def _rows_spec(x):
                  if p.is_shard(0)) or None
 
 
+def _experts_sharded(out_e) -> bool:
+    """Whether DTensor out_e (G, E, C, d) holds its experts sharded over a
+    mesh dimension of more than one rank, outside autograd."""
+    return _is_dtensor(out_e) and not (torch.is_grad_enabled()
+                                       and out_e.requires_grad) and any(
+        p.is_shard(1) and out_e.device_mesh.size(m) > 1
+        for m, p in enumerate(out_e.placements))
+
+
 def _combine_columns(out_e, dest, keep, inv_order, gates, k: int):
     """`_combine` of every group on each rank's columns of out_e
     (G, E, C, d), its d sharded (`onto_rows`) and its sum maybe partial
@@ -325,6 +334,32 @@ def _combine_columns(out_e, dest, keep, inv_order, gates, k: int):
                                                         k),
                      out_placements=y_pl, in_placements=(pl,) + (meta_pl,)
                      * 4, device_mesh=mesh)(out_e, *metas)
+
+
+def _combine_experts(out_e, dest, keep, inv_order, gates, k: int):
+    """`_combine` on each rank's experts of out_e (G, E, C, d), its E
+    sharded over `model` (expert parallelism): an assignment to another
+    rank's expert counts as dropped here, so each rank's y (G, Tg, d) f32
+    is a partial sum over `model`, one all-reduce of (G, Tg, d) where
+    gathering out_e moved its (G, E, C, d) (E·C >= Tg·k; ROADMAP C28).
+    The groups' metadata are placed as out_e's groups."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = out_e.device_mesh
+    pl = tuple(out_e.placements)
+    meta_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    metas = [a.redistribute(mesh, meta_pl)
+             for a in (dest, keep, inv_order, gates)]
+    first, n = shard_range(out_e, 1)
+    lo, hi = first * out_e.shape[2], (first + n) * out_e.shape[2]
+
+    def combine(o, de, ke, io, gg):
+        here = ke & (de >= lo) & (de < hi)
+        return _combine(o, torch.where(here, de - lo, 0), here, io, gg, k)
+    y_pl = [Partial() if p.is_shard(1) else p for p in pl]
+    return local_map(combine, out_placements=y_pl,
+                     in_placements=(pl,) + (meta_pl,) * 4,
+                     device_mesh=mesh)(out_e, *metas)
 
 
 def _as_rows(y, x):
@@ -384,6 +419,8 @@ def apply_moe(params: dict, cfg, x: torch.Tensor, *,
     if cols:
         y = _combine_columns(out_e, dest, keep, inv_order, gates,
                              k).to(x.dtype)
+    elif _experts_sharded(out_e):
+        y = _combine_experts(out_e, dest, keep, inv_order, gates, k)
     else:
         out_e = constrain(out_e, rows, ep)
         out_e = constrain(out_e, rows)    # back on the groups' shards

@@ -514,3 +514,65 @@ def test_rows_split_refuses_batched_positions():
             with pytest.raises(NotImplementedError,
                                match="batched positions"):
                 attention.attention_full(params, cfg, x, positions=pos)
+
+
+def _pid_pair(arch, shape_name, **kwargs):
+    """`run_pair`'s stand-in: traces nothing and names its process."""
+    return dict(arch=arch, shape=shape_name, mesh="pod16x16", status="skip",
+                reason=f"pid {os.getpid()}")
+
+
+def test_sweep_traces_each_pair_in_a_fresh_process(monkeypatch, capsys,
+                                                   tmp_path):
+    """C25: a pair traced after another in one process finds DTensor's
+    process-wide caches filled by it (a cached sharding hands out
+    DTensors on the earlier pair's mesh), so the sweep traces every pair
+    in a process of its own: whisper-medium's four shapes over two
+    workers run in four processes, none of them this one."""
+    monkeypatch.setattr(D, "run_pair", _pid_pair)
+    monkeypatch.setattr(D, "list_archs", lambda: ["whisper-medium"])
+    D.main(["--all", "--workers", "2", "--out", str(tmp_path)])
+    pids = [line.rsplit("pid ", 1)[1]
+            for line in capsys.readouterr().out.splitlines()
+            if "pid " in line]
+    assert len(pids) == 4 and len(set(pids)) == 4, pids
+    assert str(os.getpid()) not in pids
+
+
+def test_pure_dp_gradients_reduce_once():
+    """C26: under pure data parallelism each gradient is a partial sum
+    over `data` and `model`; with their flattened mesh registered
+    (`launch.mesh.flatten_runs`) DTensor sums it by one all-reduce over
+    both, where it all-reduced over each in turn, twice its bytes.  A
+    reduced rwkv6-1.6b's train step on a fake (2, 4) mesh all-reduces its
+    gradients' bytes once, within 5 % (the loss's scalars and a block's
+    backward besides)."""
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = get_config("rwkv6-1.6b").reduced(n_repeat=1)
+    r = D.run_pair("rwkv6-1.6b", "train_4k", cfg=cfg,
+                   shape=SMALL["train_4k"], mesh_shape=SMALL_MESH[0],
+                   mesh_names=SMALL_MESH[1], save=False)
+    assert r["status"] == "ok", r.get("traceback")
+    grads = sum(p.numel() * p.element_size() for p in tree_leaves(
+        M.init_params(cfg, torch.Generator(), device="meta")))
+    assert grads <= r["collectives"]["all-reduce"] < 1.05 * grads, \
+        (r["collectives"], grads)
+
+
+def test_batch_rows_move_by_one_all_to_all():
+    """C27: a pure-DP batch of 256 rows placed on ("pod", "data") of the
+    2 x 16 x 16 mesh, as a step's inputs are, reaches the activations'
+    ("data", "model") by one all-to-all of the rank's one row
+    (`common.exchange_rows`), where DTensor gathered 400 rows over
+    `model`, `data` and `pod` in turn."""
+    from repro_torch.models.common import constrain, set_mesh
+    with make_production_mesh(multi_pod=True) as mesh, FakeTensorMode():
+        x = _dt(mesh, (256, 64), torch.bfloat16,
+                [Shard(0), Shard(0), Replicate()])
+        rec = StepRecorder()
+        with set_mesh(mesh, batch_axes_override=("pod", "data", "model")), \
+                rec:
+            y = constrain(x, "BATCH")
+        assert tuple(y.placements) == (Replicate(), Shard(0), Shard(0))
+        assert tuple(y.to_local().shape) == (1, 64)
+    assert rec.records == [("all-to-all", 64 * 2)]

@@ -32,7 +32,10 @@ and holds them to the same calls on plain tensors (one group, no remat)
 within 1e-5 of each tensor's largest magnitude.  A second run of four
 processes holds each `model` rank's share of the heads the same way
 (`test_split_heads_match_unsharded`): GQA whose KV heads do not divide
-`model`, split by q heads or by rows, and zamba2's Mamba2 heads.
+`model`, split by q heads or by rows, and zamba2's Mamba2 heads.  A
+third moves row-sharded tensors by one all-to-all and holds them to
+DTensor's redistribution, and serves granite-moe with each rank combining
+its own experts (`test_one_exchange_moves_match_unsharded`).
 """
 import dataclasses
 import functools
@@ -309,6 +312,53 @@ def _fsdp_worker(rank, port, out):
         dist.destroy_process_group()
 
 
+ROW_MOVES = (((Shard(0), Replicate()), (Replicate(), Shard(0))),
+             ((Replicate(), Shard(0)), (Shard(0), Replicate())),
+             ((Shard(0), Shard(0)), (Replicate(), Shard(0))))
+
+
+def _moves_worker(rank, port, out):
+    """`common.exchange_rows` for each of ROW_MOVES against DTensor's
+    own redistribution of the same tensor: placements, local rows and
+    the whole tensor, and the all-to-all the only collective recorded;
+    then granite-moe-1b-a400m's decode and prefill under the serve rules,
+    its experts on `model`, combined on each rank's experts."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=WORLD, rank=rank)
+    calls = {"_combine_experts": 0}
+    real = moe._combine_experts
+
+    def combine(*a, **kw):
+        calls["_combine_experts"] += 1
+        return real(*a, **kw)
+
+    try:
+        mesh = make_local_mesh(model=2, data=2, device="cpu")
+        moe._combine_experts = combine
+        errs = {**_decode(mesh, arch="granite-moe-1b-a400m"),
+                **_prefill(mesh, "granite-moe-1b-a400m")}
+        moe._combine_experts = real
+        x = torch.randn(8, 3, generator=torch.Generator().manual_seed(5))
+        same, kinds = [], []
+        for now, to in ROW_MOVES:
+            d = distribute_tensor(x, mesh, now)
+            rec = H.StepRecorder()
+            with rec:
+                got = common.exchange_rows(d, to)
+            want = d.redistribute(mesh, to)
+            kinds.append(sorted({k for k, _ in rec.records}))
+            same.append(got.placements == want.placements
+                        and torch.equal(got.to_local(), want.to_local())
+                        and torch.equal(got.full_tensor(), x))
+        if rank == 0:
+            torch.save({"same": same, "kinds": kinds, "errs": errs,
+                        "calls": calls}, out)
+    finally:
+        moe._combine_experts = real
+        dist.destroy_process_group()
+
+
 def _run(worker, out, limit=60):
     ctx = mp.start_processes(worker, args=(_free_port(), str(out)),
                              nprocs=WORLD, join=False, start_method="spawn")
@@ -364,6 +414,27 @@ def test_fsdp_decode_matches_unsharded(tmp_path):
     assert saved["same"] == [True] * 3, saved["same"]
     # a config's logits and its K and V caches (stacked over its repeats)
     assert len(errs) == 6, sorted(errs)
+    bad = {k: v for k, v in errs.items() if not v <= TOL}
+    assert not bad, bad
+
+
+def test_one_exchange_moves_match_unsharded(tmp_path):
+    """On the (2, 2) mesh: a tensor sharded by rows moved to another row
+    placement by one all-to-all (`common.exchange_rows`, ROADMAP C27)
+    holds the rows DTensor's own redistribution gives each rank; and
+    granite-moe-1b-a400m (4 experts, two a `model` rank) decodes and
+    prefills within 1e-5 of plain tensors with each rank combining its
+    own experts' rows, one all-reduce of the (G, Tg, d) partial sums
+    (`moe._combine_experts`, ROADMAP C28): logits and every cache
+    leaf."""
+    saved = _run(_moves_worker, tmp_path / "moves.pt")
+    assert saved["same"] == [True] * len(ROW_MOVES), saved["same"]
+    assert saved["kinds"] == [["all-to-all"]] * len(ROW_MOVES), \
+        saved["kinds"]
+    # one MoE block a repeat: two repeats at decode, one at prefill
+    assert saved["calls"] == {"_combine_experts": 3}, saved["calls"]
+    errs = saved["errs"]
+    assert len(errs) >= 4, sorted(errs)
     bad = {k: v for k, v in errs.items() if not v <= TOL}
     assert not bad, bad
 
